@@ -7,7 +7,7 @@ Reference CLI (yolo11/yolo11_det.cpp:115-160):
 The port's (the same commands as `python -m tensorrtx_tpu.cli`, for the
 models this package serves):
     python -m tensorrtx_tpu_torch.cli build yolo11 -w y.wts -o y.engine \
-        --precision bf16 --set scale=n
+        --precision bf16 --set scale=n [--device cuda]
     python -m tensorrtx_tpu_torch.cli run y.engine IMAGE_DIR [--batch 8] [--device cuda]
     python -m tensorrtx_tpu_torch.cli list
 """
@@ -38,7 +38,7 @@ def cmd_build(args):
     from tensorrtx_tpu_torch.core.engine import build_engine
 
     eng = build_engine(args.model, args.wts, precision=args.precision,
-                       **_parse_set(args.set))
+                       device=args.device, **_parse_set(args.set))
     eng.save(args.output)
     print(f"engine saved → {args.output}")
     return 0
@@ -91,6 +91,7 @@ def main(argv=None):
     b.add_argument("-o", "--output", required=True)
     b.add_argument("--precision", default="fp32", choices=["fp32", "bf16", "fp16"])
     b.add_argument("--set", nargs="*", help="cfg overrides key=value")
+    b.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     b.set_defaults(fn=cmd_build)
 
     r = sub.add_parser("run", help="engine dir + images → detections (reference -d)")

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "chain_weights_from_jax"]
 
 
 def _leaf_to_torch(a) -> torch.Tensor:
@@ -55,3 +55,21 @@ def params_to_jax(module: nn.Module) -> Tuple[Dict[str, np.ndarray], List[str]]:
                 a = a.transpose(2, 3, 1, 0)  # OIHW → HWIO
             flat[key] = np.ascontiguousarray(a)
     return flat, none_paths
+
+
+def chain_weights_from_jax(wq, sw):
+    """The JAX package's quantized chain weights (`quantize_chain_weights`)
+    → the port's: int8 HWIO → int8 OHWI (the qconv kernels' layout), and a
+    depthwise conv's float HWIO (k, k, 1, C) → OIHW (C, 1, k, k) in
+    bfloat16, the type both packages keep it in. Scales become float32
+    tensors. Returns (wq, sw) as CPU tensors."""
+    out_q, out_s = [], []
+    for w, s in zip(wq, sw):
+        w = np.asarray(w)
+        if w.dtype == np.int8:
+            out_q.append(torch.from_numpy(np.ascontiguousarray(w.transpose(3, 0, 1, 2))))
+        else:
+            w = np.ascontiguousarray(w.astype(np.float32).transpose(3, 2, 0, 1))
+            out_q.append(torch.from_numpy(w).to(torch.bfloat16))
+        out_s.append(torch.from_numpy(np.asarray(s, np.float32).copy()))
+    return out_q, out_s

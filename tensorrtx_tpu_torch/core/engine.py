@@ -35,8 +35,10 @@ class Engine:
     """A model's module with its config, precision and device."""
 
     def __init__(self, name: str, params, cfg, precision: str = "fp32",
-                 device="cpu"):
-        """params: OIHW tensor tree (`params_from_jax` of a param tree)."""
+                 device="cuda"):
+        """params: OIHW tensor tree (`params_from_jax` of a param tree).
+        The engine lives on the card unless the caller passes
+        ``device="cpu"``."""
         self.name = name
         self.model = get_model(name)
         self.cfg = cfg
@@ -71,7 +73,7 @@ class Engine:
             json.dump(meta, f, indent=1)
 
     @staticmethod
-    def load(path: str, device="cpu") -> "Engine":
+    def load(path: str, device="cuda") -> "Engine":
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
         if meta.get("int8"):
@@ -110,7 +112,7 @@ def _unflatten(flat: Dict[str, np.ndarray], none_paths=()):
 
 
 def build_engine(name: str, wts_path: str, precision: str = "fp32", cfg=None,
-                 device="cpu", **cfg_overrides) -> Engine:
+                 device="cuda", **cfg_overrides) -> Engine:
     """.wts → Engine (the `-s` mode)."""
     model = get_model(name)
     if cfg is None:
@@ -121,5 +123,5 @@ def build_engine(name: str, wts_path: str, precision: str = "fp32", cfg=None,
     return Engine(name, params_from_jax(tree), cfg, precision, device)
 
 
-def load_engine(path: str, device="cpu") -> Engine:
+def load_engine(path: str, device="cuda") -> Engine:
     return Engine.load(path, device)

@@ -1,14 +1,15 @@
 """Model registry: name → ModelDef.
 
 A ModelDef is pure data: a param builder (WeightMap → numpy HWIO tree, the
-engine-dir format shared with the JAX package) and a module factory
-((cfg, OIHW tensor tree) → nn.Module whose forward takes NHWC frames).
+engine-dir format shared with the JAX package), a module factory
+((cfg, OIHW tensor tree) → nn.Module whose forward takes NHWC frames) and,
+where the model has one, its int8 chain mirror (`core.quant.ChainedInt8Engine`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 __all__ = ["ModelDef", "register", "get_model", "list_models"]
 
@@ -22,6 +23,8 @@ class ModelDef:
     module: Callable[..., Any]                # (cfg, tensor tree) -> nn.Module
     default_cfg: Callable[[], Any]            # () -> cfg dataclass
     input_shape: Callable[[Any], tuple]       # cfg -> (H, W, C)
+    # (module, x, cfg, ctx) -> outputs: the int8-resident chain mirror
+    apply_chain: Optional[Callable[..., Any]] = None
     doc: str = ""
 
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from tensorrtx_tpu_torch.core.registry import ModelDef, register
 from tensorrtx_tpu_torch.models import _yolo_blocks as B
+from tensorrtx_tpu_torch.models import _yolo_qchain as Q
 from tensorrtx_tpu_torch.ops import detect as D
 from tensorrtx_tpu_torch.ops import nn as ops
 from tensorrtx_tpu_torch.ops.nms import select_and_nms
@@ -211,32 +212,89 @@ class Yolo11(nn.Module):
         p5 = n["m22"](torch.cat([n["m20"](p4), p5_in], dim=1))
         return p3, p4, p5
 
-    def _decode(self, feats):
-        """Per level: box branch → DFL ltrb, class branch → best class;
-        concatenated level-major like the reference plugin."""
-        b = feats[0].shape[0]
-        ltrb, conf, cls_id = [], [], []
+    def _head(self, feats):
+        """Per level: box branch and class branch, as NHWC views of the
+        channels_last outputs."""
+        box_lv, cls_lv = [], []
         for f, q, r in zip(feats, self.head["cv2"], self.head["cv3"]):
             box = q["c"](q["b"](q["a"](f)))
             cls = r["c"](r["b1"](r["b0"](r["a1"](r["a0"](f)))))
-            # NCHW channels_last → NHWC is a view
-            ltrb.append(ops.dfl(box.permute(0, 2, 3, 1), self.cfg.reg_max).reshape(b, -1, 4))
-            c, k = D.best_class(cls.permute(0, 2, 3, 1))
+            box_lv.append(box.permute(0, 2, 3, 1))
+            cls_lv.append(cls.permute(0, 2, 3, 1))
+        return box_lv, cls_lv
+
+    def decode_det(self, box_lv, cls_lv):
+        """The det tail from the head's NHWC outputs: DFL ltrb and best
+        class per level, concatenated level-major like the reference
+        plugin, box decode, then the raw outputs or select + NMS."""
+        cfg = self.cfg
+        b = box_lv[0].shape[0]
+        ltrb, conf, cls_id = [], [], []
+        for box, cls in zip(box_lv, cls_lv):
+            ltrb.append(ops.dfl(box, cfg.reg_max).reshape(b, -1, 4))
+            c, k = D.best_class(cls)
             conf.append(c.reshape(b, -1))
             cls_id.append(k.reshape(b, -1))
-        return torch.cat(ltrb, 1), torch.cat(conf, 1), torch.cat(cls_id, 1)
-
-    def forward(self, x):
-        """x: (B, H, W, 3) NHWC frames in the module's dtype."""
-        cfg = self.cfg
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        ltrb, conf, cls_id = self._decode(self._features(x))
+        ltrb, conf, cls_id = torch.cat(ltrb, 1), torch.cat(conf, 1), torch.cat(cls_id, 1)
         points, strides = self._anchor_grid(ltrb.device)
         boxes = D.decode_boxes_ltrb(ltrb, points, strides)
         if cfg.postprocess == "raw":
             return {"boxes": boxes, "conf": conf, "cls": cls_id}
         return select_and_nms(boxes, conf, cls_id, cfg.conf_thresh,
                               cfg.nms_thresh, cfg.max_det).as_dict()
+
+    def forward(self, x):
+        """x: (B, H, W, 3) NHWC frames in the module's dtype."""
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self.decode_det(*self._head(self._features(x)))
+
+
+def apply_chain(module: Yolo11, x, cfg: Yolo11Cfg, ctx):
+    """Int8-resident chain mirror of the det forward (the JAX package's
+    `yolo11.apply_chain` for ``enter="m3"``, on the plain graph).
+
+    x: (B, H, W, 3) letterboxed NHWC frames in the float islands' dtype.
+    The 160² stem (m0, m1, m2) runs in float through the module, then the
+    chain enters at m3: every conv is int8×int8→int32 with a fused
+    dequant + bias + act + requant epilogue and every activation between
+    them is int8 (ops/qchain.py); C2PSA is a float island; the head's last
+    1×1s exit in float into the decode tail. `ctx` is an `ops.qchain.ChainCtx`:
+    tap mode runs this same body in float for calibration, run mode serves
+    int8. The JAX mirror's batch fold and s2d stem are TPU layout rewrites
+    that keep the slot order and the scales (a fold is a reshape; the
+    columns of block-diagonal weights carry the unfolded maxima), so the
+    slots here are JAX's one for one and any batch ≥ 1 serves."""
+    if cfg.task != "det":
+        raise NotImplementedError("the chained int8 tier covers the det task")
+    bb, nk, hd = module.backbone, module.neck, module.head
+    xf = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    xf = bb["m2"](bb["m1"](bb["m0"](xf)))
+    x = ctx.quant_in(xf.permute(0, 2, 3, 1).contiguous())
+    x = Q.qconv_a(ctx, bb["m3"], x, stride=2)
+    c4 = Q.qc3k2_a(ctx, bb["m4"], x)
+    x = Q.qconv_a(ctx, bb["m5"], c4, stride=2)
+    c6 = Q.qc3k2_a(ctx, bb["m6"], x)
+    x = Q.qc3k2_a(ctx, bb["m8"], Q.qconv_a(ctx, bb["m7"], c6, stride=2))
+    p5_in = Q.qc2psa_a(ctx, nk["m10"], Q.qsppf_a(ctx, nk["m9"], x))
+    p4_mid = Q.qc3k2_a(ctx, nk["m13"], ctx.concat([ctx.upsample(p5_in), c6]))
+    p3 = Q.qc3k2_a(ctx, nk["m16"], ctx.concat([ctx.upsample(p4_mid), c4]))
+    p4 = Q.qc3k2_a(ctx, nk["m19"], ctx.concat([Q.qconv_a(ctx, nk["m17"], p3, stride=2),
+                                              p4_mid]))
+    x = Q.qconv_a(ctx, nk["m20"], p4, stride=2)
+    p5 = Q.qc3k2_a(ctx, nk["m22"], ctx.concat([x, p5_in]))
+    box_lv, cls_lv = [], []
+    for f, q, r in zip((p3, p4, p5), hd["cv2"], hd["cv3"]):
+        box, cls = Q.qdet_head_lv(ctx, q, r, f)
+        box_lv.append(box)
+        cls_lv.append(cls)
+    return module.decode_det(box_lv, cls_lv)
+
+
+# the JAX entry's letterbox_s2d factor; the port letterboxes to full frames
+apply_chain.factor = 4
+apply_chain.supports = lambda cfg: cfg.task == "det"
+# the float islands of the chain: the modules it calls in float
+apply_chain.float_modules = ("backbone.m0", "backbone.m1", "backbone.m2", "neck.m10")
 
 
 def _input_shape(cfg: Yolo11Cfg):
@@ -249,5 +307,6 @@ register(ModelDef(
     module=Yolo11,
     default_cfg=Yolo11Cfg,
     input_shape=_input_shape,
+    apply_chain=apply_chain,
     doc="YOLO11 det (reference: yolo11/)",
 ))

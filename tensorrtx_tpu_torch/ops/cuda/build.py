@@ -33,6 +33,9 @@ KERNELS: Dict[str, tuple] = {
     # -fmad=false: the IoU must round like the plain version's separate
     # multiply and add, or a pair within an ulp of the threshold can flip
     "nms_mask": ("nms_mask.cu", ["-fmad=false"]),
+    # -fmad=false: acc·scale + bias must not contract into an FMA, or the
+    # requant can land on the other side of a rounding edge
+    "qconv": ("qconv.cu", ["-fmad=false"]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -94,7 +94,7 @@ def test_random_weight_trees_byte_equal(scale):
 def test_module_names_mirror_param_tree():
     cfg = ty.Yolo11Cfg(input_h=H, input_w=H)
     tree = ty.build_params(RandomWeightMap(seed=0), cfg)
-    eng = teng.Engine("yolo11", params_from_jax(tree), cfg)
+    eng = teng.Engine("yolo11", params_from_jax(tree), cfg, device="cpu")
     names = dict(eng.module.named_buffers())
     assert "neck.m10.m.0.attn.qkv.w" in names and "head.cv2.0.a.w" in names
     flat_tree = jax.tree_util.tree_flatten_with_path(tree, is_leaf=lambda x: x is None)[0]
@@ -117,7 +117,7 @@ def test_engine_saved_by_jax_loads_in_port(tmp_path, rng):
     params = jax.tree.map(jnp.asarray, jy.build_params(JaxRWM(seed=0), jcfg))
     je = jeng.Engine("yolo11", params, jcfg, "fp32")
     je.save(str(tmp_path / "e"))
-    te = teng.load_engine(str(tmp_path / "e"))
+    te = teng.load_engine(str(tmp_path / "e"), device="cpu")
     assert te.cfg == ty.Yolo11Cfg(**dataclasses.asdict(jcfg))
     x = rng.uniform(0, 1, (1, H, H, 3)).astype(np.float32)
     exp, got = je(jnp.asarray(x)), te(x)
@@ -128,7 +128,7 @@ def test_engine_saved_by_jax_loads_in_port(tmp_path, rng):
 def test_engine_saved_by_port_loads_in_jax(tmp_path, rng):
     _, tcfg = _raw_cfgs()
     te = teng.Engine("yolo11", params_from_jax(ty.build_params(RandomWeightMap(seed=0), tcfg)),
-                     tcfg, "bf16")
+                     tcfg, "bf16", device="cpu")
     te.save(str(tmp_path / "e"))
     meta = json.loads((tmp_path / "e" / "meta.json").read_text())
     assert meta["format_version"] == 1 and len(meta["none_paths"]) == 6
@@ -139,7 +139,7 @@ def test_engine_saved_by_port_loads_in_jax(tmp_path, rng):
     flat, _ = params_to_jax(te.module)
     assert len(flat) == sum(v is not None for v in j_leaves.values())
     # and the port's own reload serves the same detections
-    te2 = teng.load_engine(str(tmp_path / "e"))
+    te2 = teng.load_engine(str(tmp_path / "e"), device="cpu")
     x = rng.uniform(0, 1, (1, H, H, 3)).astype(np.float32)
     a, b = te(x), te2(x)
     for k in a:
@@ -154,7 +154,7 @@ def test_cli_build_run_list(tmp_path, capsys):
     save_wts(str(tmp_path / "y.wts"), wm.raw)
     assert cli.main(["build", "yolo11", "-w", str(tmp_path / "y.wts"), "-o",
                      str(tmp_path / "y.engine"), "--set", f"input_h={H}",
-                     f"input_w={H}", "conf_thresh=0.25"]) == 0
+                     f"input_w={H}", "conf_thresh=0.25", "--device", "cpu"]) == 0
     imgs = tmp_path / "imgs"
     imgs.mkdir()
     rng = np.random.default_rng(0)

@@ -80,3 +80,85 @@ def test_select_and_nms_on_card_matches_cpu(cuda):
     exp = tn.select_and_nms(boxes, scores, classes, 0.25, THRESH, 300).as_dict()
     for k in exp:
         assert torch.equal(got[k].cpu(), exp[k]), k
+
+
+# --- int8 convs of the chained tier (csrc/qconv.cu) -------------------------
+
+def qconv_inputs(seed, b, h, w, c, co, k, stride=1, residual=False):
+    """int8 activations and weights, float32 scale/bias and scalar scales
+    as the chain hands them to the kernels."""
+    rng = np.random.default_rng(seed)
+    xq = torch.from_numpy(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (co, k, k, c), dtype=np.int8))
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, co) / (127.0 * 127.0 * k * k * c ** 0.5)
+                              * 8).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.3, co).astype(np.float32))
+    kw = {"s_out": torch.tensor(0.02, dtype=torch.float32)}
+    if residual:
+        p = k // 2
+        ho, wo = (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
+        kw["residual"] = torch.from_numpy(rng.integers(-127, 128, (b, ho, wo, co), dtype=np.int8))
+        kw["res_scale"] = torch.tensor(0.01, dtype=torch.float32)
+    return xq, wq, scale, bias, kw
+
+
+QCONV_CASES = [
+    # (k, stride, B, H, W, C, Co, act, residual, out_float)
+    (3, 1, 1, 20, 20, 128, 128, "silu", False, False),
+    (3, 2, 32, 80, 80, 64, 64, "silu", False, False),
+    (3, 2, 1, 11, 9, 16, 32, "silu", False, False),
+    (3, 1, 1, 173, 16, 128, 128, "silu", False, False),
+    (3, 1, 2, 8, 16, 128, 128, "relu", True, False),
+    (3, 1, 2, 40, 40, 80, 80, None, False, True),
+    (1, 1, 32, 40, 40, 256, 128, "silu", False, False),
+    (1, 1, 1, 13, 7, 6, 10, "relu", True, False),
+    (1, 1, 2, 20, 20, 80, 80, None, False, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QCONV_CASES, ids=str)
+def test_qconv_kernels_match_plain(cuda, case):
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    k, stride, b, h, w, c, co, act, residual, out_float = case
+    xq, wq, scale, bias, kw = qconv_inputs(sum(case[2:7]), b, h, w, c, co, k, stride,
+                                           residual)
+    fn = qk.qconv3x3 if k == 3 else qk.qconv1x1
+    extra = {"stride": stride} if k == 3 else {}
+    common = dict(act=act, out_float=out_float, out_dtype=torch.float32, **extra)
+    dev = {n: (v.to(cuda) if torch.is_tensor(v) else v) for n, v in kw.items()}
+    counter = "launches_3x3" if k == 3 else "launches_1x1"
+    before = getattr(qk, counter)
+    got = fn(xq.to(cuda), wq.to(cuda), scale.to(cuda), bias.to(cuda), **dev, **common)
+    torch.cuda.synchronize()
+    assert getattr(qk, counter) == before + 1
+    plain = qk.qconv_plain(xq.to(cuda), wq.to(cuda), scale.to(cuda), bias.to(cuda),
+                           **dev, **common).cpu()
+    host = fn(xq, wq, scale, bias, **kw, **common)
+    assert getattr(qk, counter) == before + 1      # the CPU route is the plain version
+    got = got.cpu()
+    assert got.shape == plain.shape == host.shape
+    if out_float:
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got.numpy(), host.numpy(), rtol=1e-6, atol=1e-6)
+        return
+    for ref in (plain, host):
+        d = (got.int() - ref.int()).abs()
+        assert int(d.max()) <= 1
+        assert float((d > 0).float().mean()) < 1e-3
+        assert float((ref.int().abs() == 127).float().mean()) < 0.5   # not all saturated
+
+
+@pytest.mark.gpu
+def test_qconv_kernels_reject_what_they_cannot_take(cuda):
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    xq, wq, scale, bias, kw = qconv_inputs(0, 1, 8, 8, 16, 16, 3)
+    xq, wq, scale, bias = (t.to(cuda) for t in (xq, wq, scale, bias))
+    with pytest.raises(ValueError):        # NCHW view of the payload
+        qk.qconv3x3(xq.permute(0, 3, 1, 2), wq, scale, bias, 0.02)
+    with pytest.raises(TypeError):
+        qk.qconv3x3(xq.float(), wq, scale, bias, 0.02)
+    with pytest.raises(ValueError):
+        qk.qconv3x3(xq, wq, scale, bias, 0.02, stride=3)

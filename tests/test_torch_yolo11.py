@@ -69,7 +69,7 @@ def test_raw_head_matches_jax_apply(params, rng):
     tcfg = ty.Yolo11Cfg(input_h=H, input_w=H, postprocess="raw")
     x = rng.uniform(0, 1, (2, H, H, 3)).astype(np.float32)
     exp = jax.jit(lambda p, v: jy.apply(p, v, jcfg))(jtree(params), jnp.asarray(x))
-    got = Engine("yolo11", params_from_jax(params), tcfg)(x)
+    got = Engine("yolo11", params_from_jax(params), tcfg, device="cpu")(x)
     assert got["boxes"].shape == (2, 189, 4)
     np.testing.assert_allclose(got["conf"].numpy(), np.asarray(exp["conf"]), atol=1e-4)
     np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(exp["boxes"]), atol=1e-2)
@@ -85,7 +85,7 @@ def test_serving_pipeline_matches_jax(params, rng):
     over = dict(input_h=H, input_w=H, conf_thresh=0.25, max_det=300)
     jeng = JaxEngine("yolo11", jtree(params),
                      dataclasses.replace(jy.Yolo11Cfg(), **over), "fp32")
-    teng = Engine("yolo11", params_from_jax(params), ty.Yolo11Cfg(**over))
+    teng = Engine("yolo11", params_from_jax(params), ty.Yolo11Cfg(**over), device="cpu")
     frames = rng.integers(0, 256, (2, 120, 100, 3), dtype=np.uint8)
     src_hw = np.array([[120, 100], [80, 90]], np.int32)
     exp = {k: np.asarray(v) for k, v in
@@ -115,7 +115,7 @@ def test_torch_reference_witness(tmp_path, rng):
     wts = tmp_path / "y11n.wts"
     state_dict_to_wts(str(wts), tm.state_dict())
     eng = build_engine("yolo11", str(wts), scale="n", input_h=H, input_w=H,
-                       postprocess="raw")
+                       postprocess="raw", device="cpu")
     x = rng.uniform(0, 1, (1, 3, H, H)).astype(np.float32)
     with torch.no_grad():
         head = [(b.numpy(), c.numpy()) for b, c in tm(torch.from_numpy(x))["head"]]
