@@ -8,6 +8,8 @@ The port's (the same commands as `python -m tensorrtx_tpu.cli`, for the
 models this package serves):
     python -m tensorrtx_tpu_torch.cli build yolo11 -w y.wts -o y.engine \
         --precision bf16 --set scale=n [--device cuda]
+    python -m tensorrtx_tpu_torch.cli build yolo11 -w y.wts -o y.int8 \
+        --int8-calib-dir CALIB_DIR [--calib-method entropy] [--calib-images 64]
     python -m tensorrtx_tpu_torch.cli run y.engine IMAGE_DIR [--batch 8] [--device cuda]
     python -m tensorrtx_tpu_torch.cli list
 """
@@ -39,6 +41,28 @@ def cmd_build(args):
 
     eng = build_engine(args.model, args.wts, precision=args.precision,
                        device=args.device, **_parse_set(args.set))
+    if args.int8_calib_dir:
+        # the float-resident int8 tier: letterbox each calibration image,
+        # calibrate, save the engine with its scale table
+        import torch
+
+        from tensorrtx_tpu_torch.core.quant import QuantizedEngine, calibrate
+        from tensorrtx_tpu_torch.core.runner import load_image, read_files_in_dir
+        from tensorrtx_tpu_torch.ops.preprocess import letterbox
+
+        h, w, _ = eng.model.input_shape(eng.cfg)
+        files = read_files_in_dir(args.int8_calib_dir)[:args.calib_images]
+        if not files:
+            print(f"no images in {args.int8_calib_dir}", file=sys.stderr)
+            return 1
+        batches = []
+        for f in files:
+            im = torch.tensor(load_image(f), device=eng.device)
+            batches.append(letterbox(im, im.shape[0], im.shape[1], h, w)[None])
+        QuantizedEngine(eng, calibrate(eng, batches, args.calib_method)).save(args.output)
+        print(f"int8 engine saved → {args.output} (calib table int8calib.json inside, "
+              f"{args.calib_method} over {len(files)} images)")
+        return 0
     eng.save(args.output)
     print(f"engine saved → {args.output}")
     return 0
@@ -92,6 +116,10 @@ def main(argv=None):
     b.add_argument("--precision", default="fp32", choices=["fp32", "bf16", "fp16"])
     b.add_argument("--set", nargs="*", help="cfg overrides key=value")
     b.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    b.add_argument("--int8-calib-dir", help="calibration images: build the int8 engine")
+    b.add_argument("--calib-method", default="entropy",
+                   choices=["entropy", "percentile", "absmax"])
+    b.add_argument("--calib-images", type=int, default=64)
     b.set_defaults(fn=cmd_build)
 
     r = sub.add_parser("run", help="engine dir + images → detections (reference -d)")

@@ -74,10 +74,10 @@ class Engine:
 
     @staticmethod
     def load(path: str, device="cuda") -> "Engine":
+        """The float engine of a dir (an int8 dir's too; `load_engine`
+        rebuilds the int8 engine around it)."""
         with open(os.path.join(path, _META_FILE)) as f:
             meta = json.load(f)
-        if meta.get("int8"):
-            raise NotImplementedError("int8 engines are not ported yet")
         model = get_model(meta["name"])
         cfg = model.default_cfg()
         names = {f.name for f in dataclasses.fields(cfg)}
@@ -123,5 +123,13 @@ def build_engine(name: str, wts_path: str, precision: str = "fp32", cfg=None,
     return Engine(name, params_from_jax(tree), cfg, precision, device)
 
 
-def load_engine(path: str, device="cuda") -> Engine:
+def load_engine(path: str, device="cuda"):
+    """Load an engine dir; int8-flagged dirs come back as a
+    `core.quant.QuantizedEngine`."""
+    with open(os.path.join(path, _META_FILE)) as f:
+        meta = json.load(f)
+    if meta.get("int8"):
+        from tensorrtx_tpu_torch.core.quant import QuantizedEngine
+
+        return QuantizedEngine.load(path, device)
     return Engine.load(path, device)

@@ -27,7 +27,9 @@ class ServingPipeline:
 
     Frames share one static source bucket (src_h, src_w); an image smaller
     than the bucket sits in its frame's top-left corner with its true
-    (h, w) passed as data."""
+    (h, w) passed as data. ``engine`` is an `Engine` or a
+    `core.quant.QuantizedEngine` (the float-resident int8 tier), whose
+    module runs the int8 convs in place of the float ones."""
 
     def __init__(self, engine: Engine, src_h: int, src_w: int,
                  bgr_to_rgb: bool = False):

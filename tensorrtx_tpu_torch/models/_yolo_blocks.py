@@ -125,7 +125,16 @@ def c2psa_p(wm, name, c1, c2, n, e=0.5):
 
 class Conv(nn.Module):
     """Conv with folded BN, then SiLU when ``act``. Padding k//2; a
-    depthwise kernel makes it a depthwise conv (groups from the weight)."""
+    depthwise kernel makes it a depthwise conv (groups from the weight).
+
+    ``slot`` is None on the float path. An int8 engine's copy of the
+    network (`core/quant.py` `QuantizedEngine`, `calibrate`) gives every
+    Conv an `ops.quant_ctx.ConvSlot` whose index is the Conv's place in the
+    call order of one forward, the JAX package's trace order of
+    ``nn.conv2d`` calls; the scale table and the weight list follow it, so
+    each Conv must run once per forward. The slot then records calibration
+    taps of the input or runs the int8 conv in place of the float one; the
+    SiLU after it is the same."""
 
     def __init__(self, p, stride: int = 1, act: bool = True):
         super().__init__()
@@ -134,9 +143,13 @@ class Conv(nn.Module):
         self.stride = stride
         self.pad = p["w"].shape[2] // 2
         self.act = act
+        self.slot = None
 
     def forward(self, x):
-        y = ops.conv2d(x, self.w, self.b, stride=self.stride, padding=self.pad)
+        if self.slot is None:
+            y = ops.conv2d(x, self.w, self.b, stride=self.stride, padding=self.pad)
+        else:
+            y = self.slot.conv(x, self.w, self.b, self.stride, self.pad)
         return ops.silu(y) if self.act else y
 
 

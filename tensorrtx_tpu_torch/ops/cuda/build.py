@@ -36,6 +36,10 @@ KERNELS: Dict[str, tuple] = {
     # -fmad=false: acc·scale + bias must not contract into an FMA, or the
     # requant can land on the other side of a rounding edge
     "qconv": ("qconv.cu", ["-fmad=false"]),
+    # -fmad=false: x·(1/s) and the stochastic form's products must round
+    # alone, as the plain versions' do
+    "quantize": ("quantize.cu", ["-fmad=false"]),
+    "conv_planar": ("conv_planar.cu", []),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

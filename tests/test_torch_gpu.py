@@ -162,3 +162,127 @@ def test_qconv_kernels_reject_what_they_cannot_take(cuda):
         qk.qconv3x3(xq.float(), wq, scale, bias, 0.02)
     with pytest.raises(ValueError):
         qk.qconv3x3(xq, wq, scale, bias, 0.02, stride=3)
+
+
+# --- quantize kernels (csrc/quantize.cu) -------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 4099, 2 * 80 * 80 * 64])
+def test_quantize_int8_kernel_bit_equal_to_plain(cuda, dtype, n):
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.randn(n, generator=gen) * 40).to(dtype)
+    for s in (torch.tensor(0.25), torch.tensor(0.0371)):     # exact ties, then not
+        for divide in (False, True):
+            before = qz.launches
+            got = qz.quantize_int8(x.to(cuda), s.to(cuda), divide=divide)
+            torch.cuda.synchronize()
+            assert qz.launches == before + 1 and got.dtype == torch.int8
+            assert torch.equal(got.cpu(), qz.quantize_int8_plain(x, s, divide=divide))
+            assert torch.equal(got, qz.quantize_int8_plain(x.to(cuda), s.to(cuda), divide))
+    # an unaligned view takes the element-wise path
+    xv = x.to(cuda)[1:]
+    assert torch.equal(qz.quantize_int8(xv, 0.05).cpu(), qz.quantize_int8_plain(x[1:], 0.05))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_stochastic_kernel_bit_equal_to_plain(cuda, dtype):
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    x = (torch.randn(3, 50, 17, generator=torch.Generator().manual_seed(1)) * 3).to(dtype)
+    s = torch.tensor(0.05)
+    before = qz.launches_stochastic
+    got = qz.quantize_int8_stochastic(x.to(cuda), s.to(cuda), 2 ** 33 + 5)
+    torch.cuda.synchronize()
+    assert qz.launches_stochastic == before + 1
+    assert torch.equal(got.cpu(), qz.quantize_int8_stochastic_plain(x, s, 2 ** 33 + 5))
+    assert torch.equal(got, qz.quantize_int8_stochastic(x.to(cuda), s.to(cuda), 2 ** 33 + 5))
+    assert not torch.equal(got, qz.quantize_int8_stochastic(x.to(cuda), s.to(cuda), 6))
+
+
+# --- planar convs (csrc/conv_planar.cu) --------------------------------------
+
+PLANAR_CASES = [
+    # (k, B, H, C, W, Co, act, residual)
+    (3, 1, 40, 3, 200, 16, "silu", False),
+    (3, 2, 16, 20, 130, 8, "relu", True),
+    (3, 1, 9, 40, 33, 40, None, False),
+    (1, 2, 16, 48, 160, 64, "silu", True),
+    (1, 1, 5, 17, 300, 3, None, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PLANAR_CASES, ids=str)
+def test_planar_conv_kernels_match_plain(cuda, case, dtype):
+    from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
+
+    k, b, h, c, w, co, act, res = case
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(sum(case[1:6]))
+    x = torch.randn((b, h, c, w), generator=gen).to(dtype)
+    wt = torch.randn((k, k, c, co), generator=gen) / (k * k * c) ** 0.5
+    bias = torch.randn((co,), generator=gen) * 0.1
+    r = torch.randn((b, h, co, w), generator=gen).to(dtype) if res else None
+    fn = cp.conv3x3_planar if k == 3 else cp.conv1x1_planar
+    counter = "launches_3x3" if k == 3 else "launches_1x1"
+    before = getattr(cp, counter)
+    dev = [None if v is None else v.to(cuda) for v in (x, wt, bias, r)]
+    got = fn(dev[0], dev[1], dev[2], residual=dev[3], act=act)
+    torch.cuda.synchronize()
+    assert getattr(cp, counter) == before + 1
+    ref = cp.conv_planar_plain(*dev, act, k)
+    host = fn(x, wt, bias, residual=r, act=act)
+    assert getattr(cp, counter) == before + 1      # the CPU route is the plain version
+    tol = (1e-4 if dtype == torch.float32 else 2 ** -7) * (1 + float(ref.float().abs().max()))
+    for want in (ref.cpu(), host):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_planar_conv_kernels_reject_what_they_cannot_take(cuda):
+    from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
+
+    x = torch.zeros((1, 8, 4, 16), device=cuda)
+    w = torch.zeros((3, 3, 4, 8), device=cuda)
+    with pytest.raises(ValueError):         # NHWC view, not planar memory
+        cp.conv3x3_planar(x.permute(0, 1, 3, 2), torch.zeros((3, 3, 16, 8), device=cuda))
+    with pytest.raises(TypeError):
+        cp.conv3x3_planar(x.half(), w)
+    with pytest.raises(ValueError):
+        cp.conv1x1_planar(x, w)
+
+
+# --- the float-resident int8 tier --------------------------------------------
+
+@pytest.mark.gpu
+def test_int8_tier_forward_launches_its_kernels(cuda):
+    from tensorrtx_tpu_torch.core.convert import params_from_jax
+    from tensorrtx_tpu_torch.core.engine import Engine
+    from tensorrtx_tpu_torch.core.quant import QuantizedEngine, calibrate
+    from tensorrtx_tpu_torch.core.random_weights import RandomWeightMap
+    from tensorrtx_tpu_torch.models.yolo11 import Yolo11Cfg, build_params
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Yolo11Cfg(input_h=96, input_w=96, postprocess="raw")
+    params = params_from_jax(build_params(RandomWeightMap(seed=0), cfg))
+    x = torch.rand((2, 96, 96, 3), generator=torch.Generator().manual_seed(0))
+    scales = calibrate(Engine("yolo11", params, cfg, device="cpu"), [x], "percentile")
+    got_scales = calibrate(Engine("yolo11", params, cfg, device=cuda), [x], "percentile")
+    np.testing.assert_allclose(got_scales, scales, rtol=1e-5)
+    qe = QuantizedEngine(Engine("yolo11", params, cfg, device=cuda), scales)
+    before = (qz.launches, qk.launches_3x3, qk.launches_1x1)
+    out = qe(x)
+    torch.cuda.synchronize()
+    assert (qz.launches - before[0], qk.launches_3x3 - before[1],
+            qk.launches_1x1 - before[2]) == (80, 35, 45)
+    ref = QuantizedEngine(Engine("yolo11", params, cfg, device="cpu"), scales)(x)
+    assert float((out["conf"].cpu() - ref["conf"]).abs().max()) <= 1e-4
+    assert float((out["boxes"].cpu() - ref["boxes"]).abs().max()) <= 0.05
