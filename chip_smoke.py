@@ -10,9 +10,10 @@ kernels:
   env              card, toolchain, nvcc build of every kernel (ptxas report)
   kernel_vs_plain  nms_mask (B = 1, 32) and the int8 convs qconv3x3 /
                    qconv1x1 at every shape of the int8 path (B = 1, 32),
-                   with residual, float-exit and 173×16×128 extras; device
-                   time of kernel, plain version and library call, and the
-                   bound
+                   with residual, float-exit, 173×16×128 and 1×1 tail
+                   extras, and qconv1x1's GEMM-exact output bit-equal there;
+                   device time of kernel, plain version and library call,
+                   and the bound
   int8_shadow      one chained int8 forward (B = 2) with every qconv launch
                    recomputed by its plain version on the same inputs
   int8_parity      the float32-island int8 chain on the card against the
@@ -25,9 +26,10 @@ kernels:
   fq_calibrate     a bf16 `QuantizedEngine` (the float-resident int8 tier)
                    calibrated with entropy on 8 frames
   kernel_vs_plain  quantize_int8 (both forms) at the tier's 80 conv inputs,
-                   qconv3x3/qconv1x1 at its 80 conv shapes (the C = 3 and
-                   C = 16 stride-2 stems among them), quantize_int8_stochastic
-                   on 32×160×160×64, conv3x3_planar/conv1x1_planar at five
+                   qconv3x3/qconv1x1 (GEMM-exact check too) at its 80 conv
+                   shapes (the C = 3 and C = 16 stride-2 stems among them),
+                   quantize_int8_stochastic on 32×160×160×64,
+                   conv3x3_planar/conv1x1_planar at five
                    shapes in float32 and bf16 (B = 1, 32), with times
   standalone_ops   the planar convs and both quantize kernels driven through
                    their public ops (no serving path calls them)
@@ -705,8 +707,10 @@ def _qconv_args(spec, batch, rng, device):
 
 def _extra_specs(device, rng):
     """Forms of the contract the YOLO11n path does not use: the residual
-    (conv+add) epilogue, ReLU, and the 173×16×128 map that the TPU kernel's
-    tiling cannot take."""
+    (conv+add) epilogue, ReLU, the 173×16×128 map that the TPU kernel's
+    tiling cannot take, and the tails of the 1×1 tensor-core GEMM: K (C =
+    48), N (Co = 32, 10), M (5·7, 9·11 pixels) and the byte-wise path (C =
+    6)."""
     def spec(name, k, hw, c, co, **kw):
         return {"name": name, "hw": hw, "c": c,
                 "wq": torch.from_numpy(rng.integers(-127, 128, (co, k, k, c), dtype=np.int8)).to(device),
@@ -719,6 +723,10 @@ def _extra_specs(device, rng):
         spec("qconv3x3", 3, (20, 20), 128, 64, act=None, out_float=True, out_dtype=torch.bfloat16),
         spec("qconv1x1", 1, (40, 40), 256, 128, act="silu", residual=True),
         spec("qconv1x1", 1, (20, 20), 80, 80, act=None, out_float=True, out_dtype=torch.float32),
+        spec("qconv1x1", 1, (5, 7), 48, 32, act="silu"),
+        spec("qconv1x1", 1, (13, 7), 6, 10, act="relu", residual=True),
+        spec("qconv1x1", 1, (9, 11), 512, 256, act="silu", residual=True),
+        spec("qconv1x1", 1, (5, 7), 48, 32, act=None, out_float=True, out_dtype=torch.float32),
     ]
 
 
@@ -734,9 +742,26 @@ def _qconv_work(spec, batch):
     return n_bytes, 2 * m * co * k * k * c
 
 
+def _check_gemm_exact(where, args):
+    """qconv1x1 with a float32 exit, scale 1, no bias and no activation
+    returns its int32 sums as floats: bit-equal to the plain version's exact
+    sum, or the GEMM is wrong."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    xq, wq = args[0], args[1]
+    exact = (xq, wq, torch.ones(wq.shape[0], dtype=torch.float32, device=xq.device), None, None)
+    kw = {"act": None, "out_float": True, "out_dtype": torch.float32}
+    got, ref = qk.qconv1x1(*exact, **kw), qk.qconv_plain(*exact, **kw)
+    if not torch.equal(got, ref):
+        n = int((got != ref).sum())
+        raise AssertionError(f"qconv1x1 GEMM is not exact at {where}: {n} of {ref.numel()} "
+                             f"sums differ, max {float((got - ref).abs().max())}")
+
+
 def phase_qconv(device, specs, batches=(1, 32)):
     """qconv3x3 / qconv1x1 against their plain versions at every launch
-    shape of the int8 path and at the extras; then, at each batch, the
+    shape of the int8 path and at the extras, and qconv1x1's GEMM-exact
+    output (`_check_gemm_exact`) bit-equal there; then, at each batch, the
     device time of all the path's launches of each kernel (one forward's
     worth), of their plain versions and of the library's int8 product
     (`torch._int_mm`, 1×1 only; a yardstick the port never calls), and the
@@ -749,6 +774,7 @@ def phase_qconv(device, specs, batches=(1, 32)):
     for b in batches:
         stats = {name: {"max_abs_err": 0.0, "float_exit_max_abs_err": 0.0, "worst_frac": 0.0}
                  for name in fns}
+        stats["qconv1x1"]["gemm_exact_bit_equal"] = 0
         runs = {name: [] for name in fns}
         extras = _extra_specs(device, rng)
         for i, spec in enumerate(specs + extras):
@@ -765,6 +791,9 @@ def phase_qconv(device, specs, batches=(1, 32)):
                 _check_int8(spec["name"], where, err, frac)
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 st["worst_frac"] = max(st["worst_frac"], frac)
+            if spec["name"] == "qconv1x1":
+                _check_gemm_exact(where, args)
+                st["gemm_exact_bit_equal"] += 1
             if i < len(specs):
                 runs[spec["name"]].append((args, kw, spec))
         for name, calls in runs.items():
@@ -1374,12 +1403,23 @@ def main():
         "bound_ms_b32": nms[32]["bound_ms"],
         "ms_source": _source(nms[1]["ms_source"], nms[32]["ms_source"]),
     }]
+    designs = {
+        "qconv3x3": "implicit GEMM on the integer pipes (__dp4a), 64x64 tiles of 256 threads",
+        "qconv1x1": "int8 GEMM on the tensor cores (mma.sync m16n8k32 s8, ldmatrix fragments): "
+                    "one wave of blocks over 128x64 output tiles (32x32 when fewer tiles "
+                    "than SMs), 64-byte K slices in a 3-deep cp.async ring across tiles, "
+                    "epilogue through shared memory, 8 channels a thread",
+    }
     for name, line in (("qconv3x3", 103), ("qconv1x1", 205)):
         s1, s32 = qc[1][name], qc[32][name]
         t1, t32 = qc_fq[1][name], qc_fq[32][name]
+        exact = {}
+        if name == "qconv1x1":
+            exact["gemm_exact_bit_equal"] = sum(x["gemm_exact_bit_equal"] for x in (s1, s32, t1, t32))
         kernels.append({
             "name": name, "route": "cuda", "source": "tensorrtx_tpu_torch/csrc/qconv.cu",
-            "replaces": f"tensorrtx_tpu/ops/pallas/qconv.py:{line}",
+            "replaces": f"tensorrtx_tpu/ops/pallas/qconv.py:{line}", "design": designs[name],
+            **exact,
             "launches": int8_launches[name],
             "max_abs_err": max(s1["max_abs_err"], s32["max_abs_err"], shadow[name]),
             "ms": s1["ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],

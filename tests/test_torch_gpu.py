@@ -113,6 +113,24 @@ QCONV_CASES = [
     (1, 1, 32, 40, 40, 256, 128, "silu", False, False),
     (1, 1, 1, 13, 7, 6, 10, "relu", True, False),
     (1, 1, 2, 20, 20, 80, 80, None, False, True),
+    # the 1×1 tensor-core GEMM's tails: K (C = 48, 80), N (Co = 32, 80),
+    # M (2·5·7 = 70; 9·11 = 99) and the byte-wise path (C = 6)
+    (1, 1, 2, 5, 7, 48, 32, "silu", False, False),
+    (1, 1, 2, 5, 7, 80, 80, "silu", True, False),
+    (1, 1, 1, 9, 11, 512, 256, "silu", True, False),
+    (1, 1, 2, 5, 7, 48, 32, None, False, True),
+    (1, 1, 1, 13, 7, 6, 10, "silu", False, True),
+]
+
+# 1×1 shapes for the GEMM-exact check: (B, H, W, C, Co, byte offset of xq)
+GEMM_CASES = [
+    (1, 20, 20, 512, 256, 0),
+    (32, 20, 20, 80, 80, 0),
+    (2, 5, 7, 48, 32, 0),
+    (1, 9, 11, 384, 256, 0),
+    (1, 13, 7, 6, 10, 0),
+    (1, 8, 8, 64, 64, 4),       # 4-byte aligned only: the byte-wise path
+    (2, 80, 80, 64, 80, 0),
 ]
 
 
@@ -148,6 +166,31 @@ def test_qconv_kernels_match_plain(cuda, case):
         assert int(d.max()) <= 1
         assert float((d > 0).float().mean()) < 1e-3
         assert float((ref.int().abs() == 127).float().mean()) < 0.5   # not all saturated
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMM_CASES, ids=str)
+def test_qconv1x1_kernel_gemm_is_exact(cuda, case):
+    """With a float32 exit, scale 1, no bias and no activation the output
+    is the int32 sum itself (|acc| ≤ 127²·512 < 2²⁴): bit-equal to the
+    plain version's exact sum."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    b, h, w, c, co, offset = case
+    xq, wq, _, _, _ = qconv_inputs(sum(case), b, h, w, c, co, 1)
+    buf = torch.empty(xq.numel() + offset, dtype=torch.int8, device=cuda)
+    xd = buf[offset:].view(xq.shape)
+    xd.copy_(xq)
+    assert (xd.data_ptr() % 16 == 0) == (offset == 0)
+    ones = torch.ones(co, dtype=torch.float32)
+    common = dict(act=None, out_float=True, out_dtype=torch.float32)
+    before = qk.launches_1x1
+    got = qk.qconv1x1(xd, wq.to(cuda), ones.to(cuda), None, None, **common)
+    torch.cuda.synchronize()
+    assert qk.launches_1x1 == before + 1
+    exact = (xq.reshape(-1, c).long() @ wq.reshape(co, c).long().t()).reshape(b, h, w, co)
+    assert torch.equal(got.cpu(), exact.float())
+    assert torch.equal(got, qk.qconv_plain(xd, wq.to(cuda), ones.to(cuda), None, None, **common))
 
 
 @pytest.mark.gpu

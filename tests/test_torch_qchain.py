@@ -124,6 +124,12 @@ XLA_CASES = [
     ("conv_add", 1, 1, 2, 6, 6, 80, 80, "silu"),
     ("conv_out", 1, 1, 2, 5, 7, 80, 80, None),
     ("conv_out", 3, 1, 1, 9, 11, 24, 40, "silu"),
+    # tails of the 1×1 tensor-core GEMM: K (C = 48), N (Co = 32), M (2·5·7
+    # = 70; 9·11 = 99, not a multiple of 64) and the byte-wise path (C = 6)
+    ("conv", 1, 1, 2, 5, 7, 48, 32, "silu"),
+    ("conv", 1, 1, 1, 13, 7, 6, 10, "relu"),
+    ("conv_add", 1, 1, 1, 9, 11, 512, 256, "silu"),
+    ("conv_out", 1, 1, 2, 5, 7, 48, 32, None),
 ]
 
 
@@ -164,6 +170,50 @@ def test_plain_qconv_matches_xla_chain(case):
         np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-6, atol=1e-6)
     else:
         lsb_ok(got.numpy(), exp)
+
+
+GEMM_CASES = [
+    # (B, H, W, C, Co, act, residual, out)
+    (2, 5, 7, 48, 32, "silu", False, "int8"),
+    (1, 13, 7, 6, 10, "relu", True, "int8"),
+    (1, 9, 11, 512, 256, "silu", True, "int8"),
+    (2, 5, 7, 80, 80, None, False, "float32"),
+    (1, 9, 11, 384, 128, "silu", False, "bfloat16"),
+    (2, 5, 7, 48, 32, None, False, "exact"),
+]
+
+
+@pytest.mark.parametrize("case", GEMM_CASES, ids=str)
+def test_plain_qconv1x1_is_an_exact_gemm(case):
+    """The 1×1 plain version is an exact int64 GEMM (B·H·W, C) × (C, Co)
+    followed by the epilogue in the kernel's order: the formulation the
+    tensor-core kernel computes. "exact": float32 exit with scale 1, no
+    bias and no activation, the int32 sum itself."""
+    b, hh, ww, c, co, act, residual, out = case
+    rng = np.random.default_rng(sum(case[:5]))
+    xq, wq, scale, bias = int8_inputs(rng, b, hh, ww, c, co, 1)
+    xq, wq, scale, bias = t(xq), ohwi(wq), t(scale), t(bias)
+    if out == "exact":
+        scale, bias, act = torch.ones(co), None, None
+    kw = {"act": act, "out_float": out != "int8",
+          "out_dtype": torch.bfloat16 if out == "bfloat16" else torch.float32}
+    if residual:
+        kw["residual"] = t(rng.integers(-127, 128, (b, hh, ww, co), dtype=np.int8))
+        kw["res_scale"] = torch.tensor(0.01)
+    got = tk.qconv1x1(xq, wq, scale, bias, torch.tensor(0.02), **kw)
+
+    acc = (xq.reshape(-1, c).long() @ wq.reshape(co, c).long().t()).reshape(b, hh, ww, co)
+    assert int(acc.abs().max()) < 2 ** 24
+    o = acc.to(torch.float32) * scale
+    if bias is not None:
+        o = o + bias
+    if residual:
+        o = o + kw["residual"].to(torch.float32) * kw["res_scale"]
+    o = tk.act_f(o, act)
+    exp = o.to(kw["out_dtype"]) if kw["out_float"] else tk.requant(o, torch.tensor(0.02))
+    assert got.dtype == exp.dtype and torch.equal(got, exp)
+    if out == "exact":
+        assert torch.equal(got, acc.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
