@@ -10,10 +10,11 @@ kernels:
   env              card, toolchain, nvcc build of every kernel (ptxas report)
   kernel_vs_plain  nms_mask (B = 1, 32) and the int8 convs qconv3x3 /
                    qconv1x1 at every shape of the int8 path (B = 1, 32),
-                   with residual, float-exit, 173×16×128 and 1×1 tail
-                   extras, and qconv1x1's GEMM-exact output bit-equal there;
-                   device time of kernel, plain version and library call,
-                   and the bound
+                   with residual, float-exit, 173×16×128, stem-like
+                   (C = 3, 8; Co = 8) and tail extras, and both kernels'
+                   GEMM-exact output bit-equal there; device time of
+                   kernel, plain version and library call, the bound, and
+                   qconv3x3's B = 32 time per distinct launch shape
   int8_shadow      one chained int8 forward (B = 2) with every qconv launch
                    recomputed by its plain version on the same inputs
   int8_parity      the float32-island int8 chain on the card against the
@@ -27,7 +28,8 @@ kernels:
                    calibrated with entropy on 8 frames
   kernel_vs_plain  quantize_int8 (both forms) at the tier's 80 conv inputs,
                    qconv3x3/qconv1x1 (GEMM-exact check too) at its 80 conv
-                   shapes (the C = 3 and C = 16 stride-2 stems among them),
+                   shapes (the C = 3 and C = 16 stride-2 stems among them,
+                   with qconv3x3's time per shape),
                    quantize_int8_stochastic on 32×160×160×64,
                    conv3x3_planar/conv1x1_planar at five
                    shapes in float32 and bf16 (B = 1, 32), with times
@@ -708,9 +710,10 @@ def _qconv_args(spec, batch, rng, device):
 def _extra_specs(device, rng):
     """Forms of the contract the YOLO11n path does not use: the residual
     (conv+add) epilogue, ReLU, the 173×16×128 map that the TPU kernel's
-    tiling cannot take, and the tails of the 1×1 tensor-core GEMM: K (C =
-    48), N (Co = 32, 10), M (5·7, 9·11 pixels) and the byte-wise path (C =
-    6)."""
+    tiling cannot take; for the 3×3 tensor-core GEMM the stem's C = 3 at
+    stride 2 on an odd map (byte by byte), C = 8 (8-byte copies) and Co = 8
+    (one n8 fragment); and the tails of the 1×1 GEMM: K (C = 48), N (Co =
+    32, 10), M (5·7, 9·11 pixels) and the byte-wise path (C = 6)."""
     def spec(name, k, hw, c, co, **kw):
         return {"name": name, "hw": hw, "c": c,
                 "wq": torch.from_numpy(rng.integers(-127, 128, (co, k, k, c), dtype=np.int8)).to(device),
@@ -721,6 +724,10 @@ def _extra_specs(device, rng):
         spec("qconv3x3", 3, (40, 40), 128, 128, act="relu", residual=True),
         spec("qconv3x3", 3, (173, 16), 128, 128, act="silu"),
         spec("qconv3x3", 3, (20, 20), 128, 64, act=None, out_float=True, out_dtype=torch.bfloat16),
+        spec("qconv3x3", 3, (161, 97), 3, 16, act=None, out_float=True, out_dtype=torch.bfloat16,
+             stride=2),
+        spec("qconv3x3", 3, (40, 40), 8, 16, act="silu"),
+        spec("qconv3x3", 3, (41, 39), 16, 8, act="silu", stride=2),
         spec("qconv1x1", 1, (40, 40), 256, 128, act="silu", residual=True),
         spec("qconv1x1", 1, (20, 20), 80, 80, act=None, out_float=True, out_dtype=torch.float32),
         spec("qconv1x1", 1, (5, 7), 48, 32, act="silu"),
@@ -742,39 +749,79 @@ def _qconv_work(spec, batch):
     return n_bytes, 2 * m * co * k * k * c
 
 
-def _check_gemm_exact(where, args):
-    """qconv1x1 with a float32 exit, scale 1, no bias and no activation
-    returns its int32 sums as floats: bit-equal to the plain version's exact
-    sum, or the GEMM is wrong."""
+def _check_gemm_exact(where, args, kw):
+    """qconv3x3 / qconv1x1 with a float32 exit, scale 1, no bias and no
+    activation return their int32 sums as floats: bit-equal to the plain
+    version's exact sums, or the GEMM is wrong."""
     from tensorrtx_tpu_torch.ops.cuda import qconv as qk
 
     xq, wq = args[0], args[1]
     exact = (xq, wq, torch.ones(wq.shape[0], dtype=torch.float32, device=xq.device), None, None)
-    kw = {"act": None, "out_float": True, "out_dtype": torch.float32}
-    got, ref = qk.qconv1x1(*exact, **kw), qk.qconv_plain(*exact, **kw)
+    ekw = {"act": None, "out_float": True, "out_dtype": torch.float32}
+    name, fn = "qconv1x1", qk.qconv1x1
+    if wq.shape[1] == 3:
+        name, fn, ekw["stride"] = "qconv3x3", qk.qconv3x3, kw.get("stride", 1)
+    got, ref = fn(*exact, **ekw), qk.qconv_plain(*exact, **ekw)
     if not torch.equal(got, ref):
         n = int((got != ref).sum())
-        raise AssertionError(f"qconv1x1 GEMM is not exact at {where}: {n} of {ref.numel()} "
+        raise AssertionError(f"{name} GEMM is not exact at {where}: {n} of {ref.numel()} "
                              f"sums differ, max {float((got - ref).abs().max())}")
 
 
-def phase_qconv(device, specs, batches=(1, 32)):
+def _im2col(xq, stride):
+    """(B·Ho·Wo, 9·C) int8: the (tap, c)-ordered A operand of qconv3x3's
+    implicit GEMM, zero in the padding."""
+    b, h, w, c = xq.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    xp = torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1))
+    taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, 3).reshape(b * ho * wo, 9 * c)
+
+
+def _qconv3x3_per_shape(path, calls, batch):
+    """qconv3x3's device time per distinct launch shape of a path (all of
+    its launches at that shape in one forward), largest first: which shapes
+    lead."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    groups = {}
+    for a, k, sp in calls:
+        kw = sp["kw"]
+        shape = {"h": sp["hw"][0], "w": sp["hw"][1], "c": sp["c"], "co": sp["wq"].shape[0],
+                 "stride": kw.get("stride", 1), "act": kw.get("act"),
+                 "exit": str(kw["out_dtype"]).removeprefix("torch.") if kw.get("out_float")
+                 else "int8"}
+        groups.setdefault(tuple(shape.items()), []).append((a, k, sp))
+    rows, sources = [], []
+    for shape, grp in groups.items():
+        t = _timings(ms=(lambda: [qk.qconv3x3(*a, **k) for a, k, _ in grp], 10))
+        sources.append(t["ms_source"])
+        n_bytes = sum(_qconv_work(sp, batch)[0] for _, _, sp in grp)
+        rows.append(dict(shape) | {"launches": len(grp), "ms": t["ms"],
+                                   "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3})
+    rows.sort(key=lambda r: -r["ms"])
+    log("qconv3x3_shapes", path=path, batch=batch, ms_source=_source(*sources), shapes=rows)
+
+
+def phase_qconv(device, specs, batches=(1, 32), path="chain"):
     """qconv3x3 / qconv1x1 against their plain versions at every launch
-    shape of the int8 path and at the extras, and qconv1x1's GEMM-exact
-    output (`_check_gemm_exact`) bit-equal there; then, at each batch, the
-    device time of all the path's launches of each kernel (one forward's
-    worth), of their plain versions and of the library's int8 product
-    (`torch._int_mm`, 1×1 only; a yardstick the port never calls), and the
-    bound of the same work."""
+    shape of the int8 path and at the extras, and their GEMM-exact output
+    (`_check_gemm_exact`) bit-equal there; then, at each batch, the device
+    time of all the path's launches of each kernel (one forward's worth), of
+    their plain versions and of the library's int8 product (`torch._int_mm`,
+    a yardstick the port never calls: for the 1×1 the same function up to
+    the epilogue; for the 3×3 only the GEMM, on im2col operands built
+    beforehand, for the launches whose K = 9·C is a multiple of 8), the
+    bound of the same work, and at B = 32 qconv3x3's time per shape."""
     from tensorrtx_tpu_torch.ops.cuda import qconv as qk
 
     rng = np.random.default_rng(7)
     fns = {"qconv3x3": qk.qconv3x3, "qconv1x1": qk.qconv1x1}
     out = {}
     for b in batches:
-        stats = {name: {"max_abs_err": 0.0, "float_exit_max_abs_err": 0.0, "worst_frac": 0.0}
-                 for name in fns}
-        stats["qconv1x1"]["gemm_exact_bit_equal"] = 0
+        stats = {name: {"max_abs_err": 0.0, "float_exit_max_abs_err": 0.0, "worst_frac": 0.0,
+                        "gemm_exact_bit_equal": 0} for name in fns}
         runs = {name: [] for name in fns}
         extras = _extra_specs(device, rng)
         for i, spec in enumerate(specs + extras):
@@ -791,9 +838,8 @@ def phase_qconv(device, specs, batches=(1, 32)):
                 _check_int8(spec["name"], where, err, frac)
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 st["worst_frac"] = max(st["worst_frac"], frac)
-            if spec["name"] == "qconv1x1":
-                _check_gemm_exact(where, args)
-                st["gemm_exact_bit_equal"] += 1
+            _check_gemm_exact(where, args, kw)
+            st["gemm_exact_bit_equal"] += 1
             if i < len(specs):
                 runs[spec["name"]].append((args, kw, spec))
         for name, calls in runs.items():
@@ -809,11 +855,19 @@ def phase_qconv(device, specs, batches=(1, 32)):
                     mats = [(a[0].reshape(-1, a[0].shape[-1]), a[1].reshape(a[1].shape[0], -1).t())
                             for a, _, _ in calls]
                     lib = {"library_ms": (lambda: [torch._int_mm(x, w) for x, w in mats], 10)}
+                else:
+                    mats = [(_im2col(a[0], k.get("stride", 1)), a[1].reshape(a[1].shape[0], -1).t())
+                            for a, k, _ in calls if a[1].shape[3] % 8 == 0]
+                    st["int_mm_im2col_launches"] = len(mats)
+                    lib = {"int_mm_im2col_ms": (lambda: [torch._int_mm(x, w) for x, w in mats], 10)}
                 st |= _timings(ms=(lambda: [fn(*a, **k) for a, k, _ in calls], 10),
                                plain_ms=(lambda: [qk.qconv_plain(*a, **k) for a, k, _ in calls], 3),
                                **lib)
+                del mats
+                if name == "qconv3x3" and b == 32:
+                    _qconv3x3_per_shape(path, calls, b)
             stats[name] = st
-            log("kernel_vs_plain", kernel=name, batch=b, shapes=len(calls),
+            log("kernel_vs_plain", kernel=name, path=path, batch=b, shapes=len(calls),
                 extras=sum(sp["name"] == name for sp in extras), **st)
         out[b] = stats
     return out
@@ -1373,7 +1427,7 @@ def main():
         seconds=cal_s, scale_range=[float(scales.min()), float(scales.max())])
     fq_qconvs, fq_quants = fq_main_path_calls(qe)
     qz_st = phase_quantize(device, fq_quants)
-    qc_fq = phase_qconv(device, fq_qconvs)
+    qc_fq = phase_qconv(device, fq_qconvs, path="tier")
     sr = phase_stochastic(device)
     planar = phase_planar(device)
     standalone = phase_standalone_ops(device)
@@ -1404,7 +1458,15 @@ def main():
         "ms_source": _source(nms[1]["ms_source"], nms[32]["ms_source"]),
     }]
     designs = {
-        "qconv3x3": "implicit GEMM on the integer pipes (__dp4a), 64x64 tiles of 256 threads",
+        "qconv3x3": "implicit GEMM on the tensor cores (mma.sync m16n8k32 s8, ldmatrix fragments), "
+                    "K = 9C ordered (tap, c) across taps, the OHWI weight as the B operand: "
+                    "one wave of blocks over 128x64 output tiles (128x32 for Co <= 32, "
+                    "256x16 for Co <= 16, 32x32 when fewer tiles than SMs), 64-byte K "
+                    "slices in a 3-deep cp.async ring across tiles, each 16-byte chunk "
+                    "gathered through L1 from its tap's pixel (one 16-byte copy for "
+                    "C % 16 == 0, two 8-byte ones for C % 8 == 0; else a warp per row, a "
+                    "lane per K byte), epilogue through shared memory spread over all "
+                    "threads, activation and exit read at run time",
         "qconv1x1": "int8 GEMM on the tensor cores (mma.sync m16n8k32 s8, ldmatrix fragments): "
                     "one wave of blocks over 128x64 output tiles (32x32 when fewer tiles "
                     "than SMs), 64-byte K slices in a 3-deep cp.async ring across tiles, "
@@ -1413,9 +1475,13 @@ def main():
     for name, line in (("qconv3x3", 103), ("qconv1x1", 205)):
         s1, s32 = qc[1][name], qc[32][name]
         t1, t32 = qc_fq[1][name], qc_fq[32][name]
-        exact = {}
-        if name == "qconv1x1":
-            exact["gemm_exact_bit_equal"] = sum(x["gemm_exact_bit_equal"] for x in (s1, s32, t1, t32))
+        exact = {"gemm_exact_bit_equal": sum(x["gemm_exact_bit_equal"] for x in (s1, s32, t1, t32))}
+        if name == "qconv3x3":   # GEMM only, on im2col operands: no PyTorch call is an int8 conv
+            exact["int_mm_im2col_yardstick"] = {
+                "chain": {"launches": s1["int_mm_im2col_launches"], "ms": s1["int_mm_im2col_ms"],
+                          "ms_b32": s32["int_mm_im2col_ms"]},
+                "int8_tier": {"launches": t1["int_mm_im2col_launches"],
+                              "ms": t1["int_mm_im2col_ms"], "ms_b32": t32["int_mm_im2col_ms"]}}
         kernels.append({
             "name": name, "route": "cuda", "source": "tensorrtx_tpu_torch/csrc/qconv.cu",
             "replaces": f"tensorrtx_tpu/ops/pallas/qconv.py:{line}", "design": designs[name],

@@ -1,4 +1,4 @@
-"""Where qconv1x1's time goes, on one NVIDIA card.
+"""Where the int8 convs' time goes, on one NVIDIA card.
 
     python3 qconv_probe.py [--against NAME=path/to/qconv.cu ...]
 
@@ -9,12 +9,15 @@ prints one JSON line per measurement:
              activation (none, SiLU) and exit (int8, bf16, float32), and the
              GEMM-exact form (float32, scale 1, no bias); beside them
              `torch._int_mm` on the same operands and the shape's byte bound
-  paths      with --against: every 1×1 launch of one forward of the chained
-             int8 path and of the float-resident tier, at B = 1 and 32, timed
-             for this build and for each named source built with the same
-             flags (the same exported `qconv1x1_launch`), in turns
-             (this, other, other, this); the GEMM-exact output of each
-             build must be bit-equal to the plain version's sums
+  paths      with --against: every 3×3 and every 1×1 launch of one forward
+             of the chained int8 path and of the float-resident tier, at
+             B = 1 and 32, timed for this build and for each named source
+             built with the same flags (the same exported `qconv3x3_launch`
+             and `qconv1x1_launch`), in turns (this, other, other, this);
+             the GEMM-exact output of each build must be bit-equal to the
+             plain version's sums; then, at B = 32, each build's 3×3 time
+             per distinct launch shape (`qconv3x3_shapes`, path
+             "<path>:<build>")
 
 Device times come from `torch.profiler` (`chip_smoke._timings`). Weights are
 random, as in `chip_smoke.py`; the tier is calibrated with absmax (its conv
@@ -39,19 +42,24 @@ EPILOGUE_SHAPES = [
     (32, 80, 80, 80, 80), (32, 80, 80, 64, 64), (1, 20, 20, 128, 64)]
 
 
-def _launcher(lib):
-    fn = lib.qconv1x1_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers(lib):
+    """{k: the library's qconv{k}x{k}_launch}, typed as ops/cuda/qconv.py
+    types them."""
+    fns = {}
+    for k, n_int in ((3, 9), (1, 8)):
+        fn = getattr(lib, f"qconv{k}x{k}_launch")
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+    return fns
 
 
 def _builds(against, out_dir):
-    """name → qconv1x1_launch of this checkout's build and of each other
-    source, compiled with the same nvcc flags."""
+    """name → {k: qconv{k}x{k}_launch} of this checkout's build and of each
+    other source, compiled with the same nvcc flags."""
     from tensorrtx_tpu_torch.ops.cuda import build
 
-    libs = {"this": _launcher(build.load("qconv"))}
+    libs = {"this": _launchers(build.load("qconv"))}
     out_dir.mkdir(parents=True, exist_ok=True)
     for spec in against:
         name, src = spec.split("=", 1)
@@ -59,7 +67,7 @@ def _builds(against, out_dir):
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *build.KERNELS["qconv"][1], "-o",
                str(out), src]
         subprocess.run(cmd, check=True, capture_output=True, text=True)
-        libs[name] = _launcher(ctypes.CDLL(str(out.resolve())))
+        libs[name] = _launchers(ctypes.CDLL(str(out.resolve())))
     return libs
 
 
@@ -106,33 +114,46 @@ def probe_paths(device, libs):
     names = list(libs)
     order = [names[0], *names[1:], *names[1:][::-1], names[0]]
     try:
-        for path, specs in paths.items():
-            specs = [s for s in specs if s["name"] == "qconv1x1"]
-            for b in (1, 32):
-                calls = [cs._qconv_args(sp, b, rng, device) for sp in specs]
-                row = {}
-                for name in names:
-                    qk._fns[1] = libs[name]
-                    for (a, _), sp in zip(calls, specs):
-                        cs._check_gemm_exact(f"{name} {path} B={b} {sp['hw']} C={sp['c']}", a)
-                for name in order:
-                    qk._fns[1] = libs[name]
-                    t = cs._timings(ms=(lambda: [qk.qconv1x1(*a, **k) for a, k in calls], 10))
-                    row.setdefault(f"{name}_ms", []).append(t["ms"])
-                mats = [(a[0].reshape(-1, a[0].shape[-1]), a[1].reshape(a[1].shape[0], -1).t())
-                        for a, _ in calls]
-                lib = cs._timings(ms=(lambda: [torch._int_mm(x, w) for x, w in mats], 10))
-                n_bytes = sum(cs._qconv_work(sp, b)[0] for sp in specs)
-                cs.log("paths", path=path, batch=b, launches=len(specs), gemm_exact="bit-equal",
-                       library_ms=lib["ms"], bound_ms=n_bytes / cs.HBM_BYTES_PER_S * 1e3, **row)
+        for path, all_specs in paths.items():
+            for kernel, k in (("qconv3x3", 3), ("qconv1x1", 1)):
+                fn = getattr(qk, kernel)
+                specs = [s for s in all_specs if s["name"] == kernel]
+                for b in (1, 32):
+                    calls = [cs._qconv_args(sp, b, rng, device) for sp in specs]
+                    row = {}
+                    for name in names:
+                        qk._fns[k] = libs[name][k]
+                        for (a, kw), sp in zip(calls, specs):
+                            cs._check_gemm_exact(f"{name} {path} B={b} {sp['hw']} C={sp['c']}",
+                                                 a, kw)
+                    for name in order:
+                        qk._fns[k] = libs[name][k]
+                        t = cs._timings(ms=(lambda: [fn(*a, **kw) for a, kw in calls], 10))
+                        row.setdefault(f"{name}_ms", []).append(t["ms"])
+                    lib = {}
+                    if k == 1:   # the same GEMM; the 3×3's im2col yardstick is in chip_smoke.py
+                        mats = [(a[0].reshape(-1, a[0].shape[-1]),
+                                 a[1].reshape(a[1].shape[0], -1).t()) for a, _ in calls]
+                        lib["library_ms"] = cs._timings(
+                            ms=(lambda: [torch._int_mm(x, w) for x, w in mats], 10))["ms"]
+                    n_bytes = sum(cs._qconv_work(sp, b)[0] for sp in specs)
+                    cs.log("paths", kernel=kernel, path=path, batch=b, launches=len(specs),
+                           gemm_exact="bit-equal", bound_ms=n_bytes / cs.HBM_BYTES_PER_S * 1e3,
+                           **lib, **row)
+                    if k == 3 and b == 32:
+                        for name in names:
+                            qk._fns[k] = libs[name][k]
+                            cs._qconv3x3_per_shape(f"{path}:{name}",
+                                                   [(a, kw, sp) for (a, kw), sp in zip(calls, specs)],
+                                                   b)
     finally:
-        qk._fns.pop(1, None)
+        qk._fns.clear()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=SRC.cu",
-                    help="another qconv.cu to time on the paths' 1×1 shapes")
+                    help="another qconv.cu to time on the paths' 3×3 and 1×1 shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("qconv_probe: no CUDA device", file=sys.stderr)

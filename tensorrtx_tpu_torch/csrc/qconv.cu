@@ -20,55 +20,71 @@
 // plain version's up to the last bit of expf in SiLU. Both kernels below
 // share that epilogue (`epilogue_values`). With scale 1, no bias, no
 // activation and a float32 exit the output is the int32 sum rounded to
-// float32, which is the sum itself for a 1x1 (|acc| <= 127^2 * C < 2^24 for
-// C <= 1040): the check that the GEMM is exact, bit for bit.
+// float32, which is the sum itself while |acc| < 2^24 (always for a 1x1 with
+// C <= 1040, a 3x3 with C <= 115, and far beyond for random int8 inputs): the
+// check that the GEMM is exact, bit for bit.
 //
-// What bounds it: at YOLO11n-640 the maps are small (80x80 and below, 160x160
-// in the float-resident tier, C <= 512). The int8 MACs of one forward (about
-// 2.3 G per image) over the 1,979 TOP/s dense int8 peak take ~2.3 us per
-// image; its activations and weights (a few MB per image) over 3.35 TB/s
-// take about as long, so the GEMM is bound by bytes, and at batch 1 by the
-// launch itself. The epilogue is not: an int8 exit with SiLU costs an expf
-// and two IEEE divisions per output (each a dependent chain with a slow-path
-// branch the compiler will not schedule across), which at batch 32 takes
-// several times longer than the output's bytes.
+// What bounds it: at YOLO11n-640 the maps are small (80x80 and below, 320x320
+// and 160x160 in the float-resident tier's stems, C <= 512). The int8 MACs of
+// one forward (about 2.3 G per image for the 1x1s, 1.8-2.1 G for the 3x3s)
+// over the 1,979 TOP/s dense int8 peak take ~2 us per image; its activations
+// and weights (a few MB per image) over 3.35 TB/s take about as long, so the
+// GEMMs are bound by bytes, and at batch 1 by the launch itself. The epilogue
+// is not: an int8 exit with SiLU costs an expf and two IEEE divisions per
+// output (each a dependent chain with a slow-path branch the compiler will
+// not schedule across), which at batch 32 takes several times longer than the
+// output's bytes.
 //
-// 1x1 (`qconv1x1_mma_kernel`): a GEMM on the int8 tensor cores, M = output
-// pixels (B*H*W), N = Co, K = C. The NHWC activations are M x K row-major and
-// the OHWI weights N x K with K contiguous, the operand layouts of
-// mma.sync.m16n8k32.row.col.s32.s8.s8.s32, so nothing is transposed. A block
-// of 8 warps (4 x 2) computes 128-pixel x 64-channel tiles, a warp 32 x 32
-// (2 m16 x 4 n8 fragments, 32 int32 sums a thread); a conv with fewer such
-// tiles than the card has SMs takes 32 x 32 tiles (warps of 16 x 16), so that
-// more SMs share its epilogue. K is staged
-// in 64-byte slices by 16-byte cp.async copies into a ring of kStages slices;
-// rows are padded to 80 bytes, which puts the 8 rows of each ldmatrix in 8
-// different 16-byte bank groups. The last slice is zero-filled past C, rows
-// past M and Co are zero and never stored. A channel count that is not a
-// multiple of 16, or a pointer that is not 16-byte aligned, is staged byte by
-// byte into the same zero-filled layout.
-// The convs are short in K (C <= 512: at most 8 slices) and long in M, so a
-// block that loaded, computed and stored one tile would wait on memory most
-// of its life. One wave of blocks runs instead, each walking its share of
-// the output tiles, and its slices form one stream across them, so the ring
-// keeps loading the next tiles through this tile's mma steps and epilogue.
-// Tiles are numbered N-tile fastest, so the blocks that read one activation
-// tile run together and share it through L2. At the end of a tile the warps
-// put their sums in shared memory, and each thread then runs the epilogue of
-// 8 consecutive channels of a row: one residual load and one 8/16/32-byte
-// store for the 8, where the fragments' own layout would give 2-channel
-// pieces with their own addresses and guards.
-// `stage_slice` and `mma_kstep` take any row source, so an implicit-GEMM 3x3
-// can reuse them with the taps as an outer K loop.
+// Both kernels are GEMMs on the int8 tensor cores
+// (mma.sync.m16n8k32.row.col.s32.s8.s8.s32): M = output pixels (B*Ho*Wo),
+// N = Co, K = the taps' channels. The A operand is M x K row-major and the
+// OHWI weights are N x K with K contiguous, the operand layouts of the mma,
+// so nothing is transposed. K is staged in 64-byte slices by cp.async copies
+// into a ring of kStages slices; rows are padded to 80 bytes, which puts the
+// 8 rows of each ldmatrix in 8 different 16-byte bank groups. K, M and Co
+// tails are zero-filled, and rows past M and Co are never stored.
+// The convs are short in K and long in M, so a block that loaded, computed
+// and stored one tile would wait on memory most of its life. One wave of
+// blocks runs instead, each walking its share of the output tiles, and its
+// slices form one stream across them, so the ring keeps loading the next
+// tiles through this tile's mma steps and epilogue. Tiles are numbered N-tile
+// fastest, so the blocks that read one activation tile run together and
+// share it through L2. At the end of a tile the warps put their sums in
+// shared memory, and each thread then runs the epilogue of 8 consecutive
+// channels of a row (`tile_epilogue`): one residual load and one
+// 8/16/32-byte store for the 8, where the fragments' own layout would give
+// 2-channel pieces with their own addresses and guards.
+// Tiles: 128 pixels x 64 channels (8 warps of 32 x 32: 2 m16 x 4 n8
+// fragments, 32 int32 sums a thread); a conv with fewer such tiles than the
+// card has SMs takes 32 x 32 tiles (warps of 16 x 16), so that more SMs share
+// its K loop and epilogue.
 //
-// 3x3 (`qconv_kernel<3>`): an implicit GEMM on the integer pipes. A block of
-// 256 threads owns a 64-pixel x 64-channel output tile. For each tap and each
-// 32-channel slice of C it stages the 64 input rows (zero where the tap falls
-// in the padding) and the 64 weight rows (OHWI) in shared memory as 32-bit
-// words of four int8 values; each thread accumulates a 4x4 sub-tile with
-// __dp4a. A channel count that is not a multiple of 32 is zero-filled in the
-// last slice, and one that is not a multiple of 4 (or an unaligned pointer)
-// is read byte by byte. Its move to the tensor cores is the next change.
+// 1x1 (`qconv1x1_mma_kernel`): K = C, row m of A is input pixel m. A channel
+// count that is not a multiple of 16, or a pointer that is not 16-byte
+// aligned, is staged byte by byte into the same zero-filled layout.
+//
+// 3x3 (`qconv3x3_mma_kernel`): an implicit GEMM, K = 9*C ordered (tap, c),
+// tap = 3*ky + kx, which is the OHWI weight's own order: the weight is the
+// (Co, 9C) B operand as it lies. Row m of A at K index tap*C + c is channel c
+// of input pixel (oy*s + ky - 1, ox*s + kx - 1), zero in the padding. K is
+// flattened across taps, not padded per tap: at C = 16 a 64-byte slice holds
+// four taps, and the C = 3 stem's whole K of 27 is one 32-byte mma step.
+// Each 16-byte chunk of a slice finds its own tap (`stage_taps`): with
+// C % 16 == 0 it lies in one tap and goes by one 16-byte cp.async, with
+// C % 8 == 0 by two 8-byte ones, both through L1, which serves the nine taps'
+// reads of each pixel. A thread stages the same chunk column of its rows, so
+// it finds each row's pixel once a tile (by multiply-shift division) and
+// advances its chunk's tap once a slice. Otherwise (the C = 3 stem, unaligned
+// pointers) a warp stages 32 consecutive K bytes of a row at a time, lane l
+// byte l (`stage_bytes`), so that each lane's tap is found once a slice and
+// each row costs one load and one store a lane. The time goes, at these
+// shapes, to the instructions of each slice and tile and to the epilogue, not
+// to the bytes (the A operand re-reads each pixel for nine taps, from L1 and
+// L2): hence the flat K, the per-tile and per-slice index work kept out of
+// the inner loops, and the tiles by Co: a 64-wide tile would spend most of its
+// mma steps and epilogue threads on columns past Co = 8, 16 or 32 (see the
+// launchers). Activation and exit are read at run time, so the 3x3 is built
+// once per tile shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +108,7 @@ struct Epilogue {
   const int8_t* res;       // (M, Co) or null
   const float* res_scale;  // scalar, with res
   void* out;               // (M, Co)
-  int out_kind, act, Co;
+  int out_kind, act, Co;   // act: read by the 3x3 kernel; the 1x1 is built per activation
 };
 
 // o of N output elements from their int32 sums, each operation rounded
@@ -139,47 +155,42 @@ __device__ __forceinline__ void store_out(void* out, size_t o_idx, float o, floa
   }
 }
 
-// The epilogue of one output element, activation and output kind read at
-// run time (the 3x3 kernel's form).
-__device__ __forceinline__ void epilogue(const Epilogue& e, int m, int co, int acc, float so,
-                                         float rs) {
-  const size_t o_idx = static_cast<size_t>(m) * e.Co + co;
-  const int a[1] = {acc};
-  const float sc[1] = {e.scale[co]};
-  const float bi[1] = {e.bias != nullptr ? e.bias[co] : 0.0f};
-  const int8_t r[1] = {e.res != nullptr ? e.res[o_idx] : static_cast<int8_t>(0)};
-  float o[1];
-  if (e.act == kActSilu) {
-    epilogue_values<kActSilu, 1>(e, a, sc, bi, r, rs, o);
-  } else if (e.act == kActRelu) {
-    epilogue_values<kActRelu, 1>(e, a, sc, bi, r, rs, o);
-  } else {
-    epilogue_values<kActNone, 1>(e, a, sc, bi, r, rs, o);
-  }
-  if (e.out_kind == kOutInt8) {
-    store_out<kOutInt8>(e.out, o_idx, o[0], so);
-  } else if (e.out_kind == kOutF32) {
-    store_out<kOutF32>(e.out, o_idx, o[0], so);
-  } else {
-    store_out<kOutBf16>(e.out, o_idx, o[0], so);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// 1x1: int8 GEMM on the tensor cores (mma.sync m16n8k32)
+// the tensor-core pieces, shared by both kernels
 // ---------------------------------------------------------------------------
 
-constexpr int kBK = 64;         // K bytes (int8 channels) per staged slice
-constexpr int kLdS = kBK + 16;  // padded shared row: 8 ldmatrix rows, 8 bank groups
-constexpr int kStages = 3;      // slices in flight
+constexpr int kBK = 64;            // K bytes (int8 channels) per staged slice
+constexpr int kChunks = kBK / 16;  // 16-byte chunks of a slice row
+constexpr int kLdS = kBK + 16;     // padded shared row: 8 ldmatrix rows, 8 bank groups
+constexpr int kStages = 3;         // slices in flight
+
+// How a slice is read: 16-byte cp.async chunks (K % 16 == 0, rows 16-byte
+// aligned), 8-byte ones (K % 8 == 0, rows 8-byte aligned), or byte by byte.
+enum Copy { kCopyBytes = 1, kCopy8 = 8, kCopy16 = 16 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16 bytes global -> shared, asynchronously; bytes past src_bytes are zero.
+// kL1: through L1 (.ca), where the same bytes are read again soon (the 3x3
+// reads each pixel for nine taps); else from L2 only (.cg).
+template <bool kL1 = false>
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+  if (kL1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+// The same for 8 bytes (through L1: .cg takes 16-byte copies only).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -212,32 +223,39 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stages channels [k0, k0 + kBK) of ROWS rows into s (row stride kLdS bytes).
-// src(r) points at channel 0 of row r, or is null for a row of zeros;
-// channels >= C are zero. vec: C % 16 == 0 and every row 16-byte aligned, so
-// each 16-byte chunk is whole or wholly past C and goes by cp.async; else the
-// chunk is read byte by byte. `any` is a valid global address (unread).
-template <int ROWS, int THREADS, typename Src>
+// Stages K bytes [k0, k0 + kBK) of ROWS rows into s (row stride kLdS bytes).
+// src(r) points at K byte 0 of row r, or is null for a row of zeros; bytes
+// >= K are zero. With kCopy16 (kCopy8) each 16-byte chunk (8-byte half) is
+// whole or wholly past K and goes by cp.async (kL1: see cp_async16); with
+// kCopyBytes it is read byte by byte. `any` is a valid global address (unread).
+template <int ROWS, int THREADS, bool kL1 = false, typename Src>
 __device__ __forceinline__ void stage_slice(int8_t* s, Src src, const int8_t* any, int k0,
-                                            int C, bool vec, int tid) {
-  constexpr int kChunksPerRow = kBK / 16;
-  static_assert(ROWS * kChunksPerRow % THREADS == 0, "whole chunks per thread");
+                                            int K, int copy, int tid) {
+  constexpr int kAll = ROWS * kChunks;
+  static_assert(kAll % THREADS == 0 || kAll < THREADS, "whole chunks per thread");
 #pragma unroll
-  for (int j = 0; j < ROWS * kChunksPerRow / THREADS; ++j) {
+  for (int j = 0; j < (kAll + THREADS - 1) / THREADS; ++j) {
     const int i = tid + j * THREADS;
-    const int r = i / kChunksPerRow;
-    const int c = k0 + (i % kChunksPerRow) * 16;
+    if (kAll < THREADS && i >= kAll) break;
+    const int r = i / kChunks;
+    const int c = k0 + (i % kChunks) * 16;
     int8_t* d = s + r * kLdS + (c - k0);
     const int8_t* p = src(r);
-    if (vec) {
-      const bool in = p != nullptr && c < C;
-      cp_async16(d, in ? p + c : any, in ? 16 : 0);
+    if (copy == kCopy16) {
+      const bool in = p != nullptr && c < K;
+      cp_async16<kL1>(d, in ? p + c : any, in ? 16 : 0);
+    } else if (copy == kCopy8) {
+#pragma unroll
+      for (int h = 0; h < 16; h += 8) {
+        const bool in = p != nullptr && c + h < K;
+        cp_async8(d + h, in ? p + c + h : any, in ? 8 : 0);
+      }
     } else {
       uint32_t v[4] = {0, 0, 0, 0};
       if (p != nullptr) {
 #pragma unroll
         for (int b = 0; b < 16; ++b) {
-          if (c + b < C)
+          if (c + b < K)
             v[b / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(p[c + b])) << (8 * (b % 4));
         }
       }
@@ -268,6 +286,37 @@ __device__ __forceinline__ void mma_kstep(const int8_t* a, const int8_t* b, int 
     for (int ni = 0; ni < NI; ++ni)
       mma_s8(acc[mi][ni], af[mi], bf[ni / 2][(ni & 1) * 2], bf[ni / 2][(ni & 1) * 2 + 1]);
 }
+
+// A warp's sums into its (16*MI) x (8*NI) block of Cs at (row0, col0), row
+// stride ldc int32, and its accumulators back to 0: fragment (mi, ni) holds
+// rows g, g + 8 and columns 2t, 2t + 1.
+template <int MI, int NI>
+__device__ __forceinline__ void fragments_to_smem(int* Cs, int ldc, int row0, int col0,
+                                                  int lane, int (&acc)[MI][NI][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int row = row0 + mi * 16 + g + 8 * h, col = col0 + ni * 8 + 2 * t;
+        *reinterpret_cast<int2*>(Cs + row * ldc + col) =
+            make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        acc[mi][ni][2 * h] = acc[mi][ni][2 * h + 1] = 0;
+      }
+}
+
+// A tile of WARPS_M x WARPS_N warps of MI m16 x NI n8 fragments each.
+template <int WARPS_M, int WARPS_N, int MI, int NI>
+struct Tile {
+  static constexpr int BM = WARPS_M * 16 * MI, BN = WARPS_N * 8 * NI;
+  static constexpr int kThreads = WARPS_M * WARPS_N * 32;
+  static constexpr int kSmem = kStages * (BM + BN) * kLdS + BM * (BN + 8) * 4;
+  static long long items(int M, int Co) {
+    return static_cast<long long>((M + BM - 1) / BM) * ((Co + BN - 1) / BN);
+  }
+};
 
 // The epilogue of 8 consecutive output channels co0.. of pixel m from their
 // int32 sums: one 8-byte residual load and one 8-, 16- or 32-byte store when
@@ -317,23 +366,59 @@ __device__ __forceinline__ void epilogue8(const Epilogue& e, int m, int co0, con
     if (co0 + j < e.Co) store_out<OUT>(e.out, o_idx + j, o[j], so);
 }
 
+// The epilogue of the BM-row output tile at (m0, n0) from its sums in Cs
+// (row stride ldc int32). `groups` 8-channel groups (a power of two) span
+// the tile's channels: thread tid runs group tid % groups of rows
+// tid / groups, + THREADS / groups, ...
+template <int ACT, int BM, int THREADS>
+__device__ __forceinline__ void tile_epilogue(const Epilogue& ep, const int* Cs, int ldc, int m0,
+                                              int n0, int M, int groups, int tid, float so,
+                                              float rs) {
+  const int cg = tid % groups, step = THREADS / groups;
+  const int co0 = n0 + cg * 8;
+  if (co0 >= ep.Co || tid / groups >= BM) return;
+  const bool whole = co0 + 8 <= ep.Co && (ep.Co & 7) == 0;
+  float sc[8], bi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int co = min(co0 + j, ep.Co - 1);
+    sc[j] = ep.scale[co];
+    bi[j] = ep.bias != nullptr ? ep.bias[co] : 0.0f;
+  }
+  auto run = [&](auto kind) {
+    constexpr int OUT = decltype(kind)::value;
+    for (int row = tid / groups; row < BM && m0 + row < M; row += step) {
+      union { int4 u[2]; int v[8]; } sums;
+      sums.u[0] = *reinterpret_cast<const int4*>(Cs + row * ldc + cg * 8);
+      sums.u[1] = *reinterpret_cast<const int4*>(Cs + row * ldc + cg * 8 + 4);
+      epilogue8<ACT, OUT>(ep, m0 + row, co0, sums.v, sc, bi, so, rs, whole);
+    }
+  };
+  if (ep.out_kind == kOutInt8) {
+    run(std::integral_constant<int, kOutInt8>());
+  } else if (ep.out_kind == kOutF32) {
+    run(std::integral_constant<int, kOutF32>());
+  } else {
+    run(std::integral_constant<int, kOutBf16>());
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1x1: int8 GEMM
+// ---------------------------------------------------------------------------
+
 // Work item i is the output tile (M tile i / N tiles, N tile i % N tiles);
 // block b takes items b, b + G, b + 2G, ... (G blocks), its K slices one
-// stream across them. The sums of an item go through shared memory (Cs) to
-// the epilogue, 8 consecutive channels of a row per thread at a time.
+// stream across them.
 template <int WARPS_M, int WARPS_N, int kMI, int kNI, int ACT>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 512 / (WARPS_M * WARPS_N * 32))
 qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
                     const int8_t* __restrict__ w,  // (Co, C)
-                    Epilogue ep, int M, int C, int vec) {
-  // a warp's tile: kMI m16 x kNI n8 fragments
-  constexpr int BM = WARPS_M * 16 * kMI, BN = WARPS_N * 8 * kNI;
-  constexpr int kThreads = WARPS_M * WARPS_N * 32;
+                    Epilogue ep, int M, int C, int copy) {
+  using T = Tile<WARPS_M, WARPS_N, kMI, kNI>;
+  constexpr int BM = T::BM, BN = T::BN, kThreads = T::kThreads;
   constexpr int kSlice = (BM + BN) * kLdS;  // bytes of one staged slice
   constexpr int kLdC = BN + 8;              // int32 row of Cs: 8-byte stores spread
-  constexpr int kGroups = BN / 8;           // 8-channel groups of a row
-  constexpr int kRowsPerPass = kThreads / kGroups;
-  static_assert(BM % kRowsPerPass == 0, "whole epilogue passes");
   extern __shared__ __align__(128) int8_t smem[];
   int* Cs = reinterpret_cast<int*>(smem + kStages * kSlice);  // BM x kLdC sums
 
@@ -346,7 +431,6 @@ qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
   const int nk = (C + kBK - 1) / kBK;
   const int bid = blockIdx.x;
   const int total = bid < items ? ((items - 1 - bid) / G + 1) * nk : 0;
-  const bool v16 = vec != 0;
 
   auto stage = [&](int s) {  // slice s of this block's stream
     const int item = bid + (s / nk) * G, kt = s % nk;
@@ -358,14 +442,12 @@ qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
       return n0 + r < Co ? w + static_cast<size_t>(n0 + r) * C : nullptr;
     };
     int8_t* d = smem + (s % kStages) * kSlice;
-    stage_slice<BM, kThreads>(d, a_row, x, kt * kBK, C, v16, tid);
-    stage_slice<BN, kThreads>(d + BM * kLdS, b_row, w, kt * kBK, C, v16, tid);
+    stage_slice<BM, kThreads>(d, a_row, x, kt * kBK, C, copy, tid);
+    stage_slice<BN, kThreads>(d + BM * kLdS, b_row, w, kt * kBK, C, copy, tid);
   };
 
-  const int g = lane >> 2, t = lane & 3;
   const float so = ep.out_kind == kOutInt8 ? *ep.s_out : 1.0f;
   const float rs = ep.res != nullptr ? *ep.res_scale : 0.0f;
-  const int cg = tid % kGroups, r0 = tid / kGroups;  // this thread's epilogue slots
 
   int acc[kMI][kNI][4];
 #pragma unroll
@@ -393,51 +475,255 @@ qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
     if (kt * kBK + 32 < C) mma_kstep<kMI, kNI>(a, b, 32, lane, acc);
     if (++kt < nk) continue;
 
-    // the tile's sums to Cs: fragment (mi, ni) rows g, g + 8, columns 2t, 2t + 1
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) {
-          const int row = wm * 16 * kMI + mi * 16 + g + 8 * h;
-          const int col = wn * 8 * kNI + ni * 8 + 2 * t;
-          *reinterpret_cast<int2*>(Cs + row * kLdC + col) =
-              make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-          acc[mi][ni][2 * h] = acc[mi][ni][2 * h + 1] = 0;
-        }
+    fragments_to_smem<kMI, kNI>(Cs, kLdC, wm * 16 * kMI, wn * 8 * kNI, lane, acc);
     __syncthreads();
+    tile_epilogue<ACT, BM, kThreads>(ep, Cs, kLdC, (item / n_tiles) * BM,
+                                     (item % n_tiles) * BN, M, BN / 8, tid, so, rs);
+    kt = 0;
+    item += G;
+  }
+}
 
-    const int m0 = (item / n_tiles) * BM;
-    const int co0 = (item % n_tiles) * BN + cg * 8;
-    if (co0 < Co) {
-      const bool whole = co0 + 8 <= Co && (Co & 7) == 0;
-      float sc[8], bi[8];
+// ---------------------------------------------------------------------------
+// 3x3: implicit GEMM, K = 9*C ordered (tap, c)
+// ---------------------------------------------------------------------------
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift, d fixed for a launch
+// (Granlund and Montgomery's method, as CUTLASS's FastDivmod): the divisions
+// that find a row's pixel and a K byte's tap run per tile and per slice.
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+};
+
+FastDiv fast_div(int d) {
+  FastDiv f{d, 0, 0};
+  if (d > 1) {
+    int l = 31 - __builtin_clz(static_cast<unsigned>(d));  // ceil(log2(d))
+    if ((d & (d - 1)) != 0) ++l;
+    f.mul = static_cast<uint32_t>(((1ull << (31 + l)) + d - 1) / d);
+    f.shr = static_cast<uint32_t>(l - 1);
+  }
+  return f;
+}
+
+__device__ __forceinline__ int quot(int n, const FastDiv& f) {
+  return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<uint32_t>(n), f.mul) >> f.shr);
+}
+
+// The shape of a 3x3 launch, with the divisors the kernel divides by.
+struct Geom3x3 {
+  int H, W, C, stride, M, copy;
+  FastDiv Wo, Ho, C_div, n_tiles;
+};
+
+// An A row of the 3x3 as a thread stages it: the input pixel under tap
+// (0, 0), (iy, ix) = (oy*s - 1, ox*s - 1), and `off`, its element offset in
+// x (an address base only: the pixel may lie in the padding). A row past M
+// has iy = -4, so that every tap misses the map.
+struct TapRow {
+  long long off;
+  int iy, ix;
+};
+
+__device__ __forceinline__ TapRow tap_row(const Geom3x3& g, int m) {
+  const int q = quot(m, g.Wo), ox = m - q * g.Wo.d;
+  const int b = quot(q, g.Ho), oy = q - b * g.Ho.d;
+  TapRow r;
+  r.iy = m < g.M ? oy * g.stride - 1 : -4;
+  r.ix = ox * g.stride - 1;
+  r.off = ((static_cast<long long>(b) * g.H + r.iy) * g.W + r.ix) * g.C;
+  return r;
+}
+
+// Whether tap (ky, kx) of the row falls inside the map.
+__device__ __forceinline__ bool tap_in(const Geom3x3& g, const TapRow& r, int ky, int kx) {
+  return static_cast<unsigned>(r.iy + ky) < static_cast<unsigned>(g.H) &&
+         static_cast<unsigned>(r.ix + kx) < static_cast<unsigned>(g.W);
+}
+
+// Stages one 16-byte chunk of N rows of the 3x3 A operand into d, d + ld,
+// d + 2 ld, ... by cp.async (copy kCopy16, or kCopy8 as two halves): K index
+// tap*C + c is channel c of pixel (iy + tap / 3, ix + tap % 3) of the row,
+// zero in the padding and from tap 9 on. (tap, c): the chunk's first byte.
+template <int N>
+__device__ __forceinline__ void stage_taps(int8_t* d, int ld, const int8_t* x,
+                                           const TapRow (&rows)[N], int tap, int c,
+                                           const Geom3x3& g) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int co = min(co0 + j, Co - 1);
-        sc[j] = ep.scale[co];
-        bi[j] = ep.bias != nullptr ? ep.bias[co] : 0.0f;
-      }
-      auto run = [&](auto kind) {
-        constexpr int OUT = decltype(kind)::value;
+  for (int h = 0; h < 16; h += 8) {  // one 16-byte copy, or two 8-byte ones
+    if (h % g.copy != 0) continue;
+    int t = tap, cc = c + h;
+    if (cc >= g.C) {  // the second half opens the next tap (C % 8 == 0)
+      cc -= g.C;
+      ++t;
+    }
+    const int ky = t / 3, kx = t - 3 * ky;
+    const long long off = static_cast<long long>(ky * g.W + kx) * g.C + cc;
 #pragma unroll
-        for (int p = 0; p < BM / kRowsPerPass; ++p) {
-          const int row = r0 + p * kRowsPerPass;
-          if (m0 + row >= M) break;
-          union { int4 u[2]; int v[8]; } sums;
-          sums.u[0] = *reinterpret_cast<const int4*>(Cs + row * kLdC + cg * 8);
-          sums.u[1] = *reinterpret_cast<const int4*>(Cs + row * kLdC + cg * 8 + 4);
-          epilogue8<ACT, OUT>(ep, m0 + row, co0, sums.v, sc, bi, so, rs, whole);
-        }
-      };
-      if (ep.out_kind == kOutInt8) {
-        run(std::integral_constant<int, kOutInt8>());
-      } else if (ep.out_kind == kOutF32) {
-        run(std::integral_constant<int, kOutF32>());
+    for (int j = 0; j < N; ++j) {
+      const bool in = t < 9 && tap_in(g, rows[j], ky, kx);
+      const int8_t* p = in ? x + rows[j].off + off : x;
+      if (g.copy == kCopy16) {
+        cp_async16<true>(d + j * ld, p, in ? 16 : 0);
       } else {
-        run(std::integral_constant<int, kOutBf16>());
+        cp_async8(d + j * ld + h, p, in ? 8 : 0);
       }
+    }
+  }
+}
+
+// Byte-wise staging, a warp at a time: lane l loads one byte of each of N
+// rows, src(i) its address for row i (or null for a zero), and stores it at
+// d + i * kLdS + l. All N loads are in flight before the first store.
+template <int N, typename Src>
+__device__ __forceinline__ void stage_bytes(int8_t* d, Src src, int lane) {
+  int8_t v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int8_t* p = src(i);
+    v[i] = p != nullptr ? *p : static_cast<int8_t>(0);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i * kLdS + lane] = v[i];
+}
+
+// The 1x1 kernel's loop over work items and K slices, with the A rows
+// gathered from the taps. With cp.async copies a thread stages chunk
+// tid % kChunks of A rows tid / kChunks, + kThreads / kChunks, ...: one
+// (tap, c) for all its rows, advanced a slice at a time. Byte by byte, warp
+// w stages rows w * BM / warps, ... 32 K bytes at a time, lane l byte l; lane
+// i holds row i's pixel and hands it to the warp. Pixels are found once a
+// tile, when the stream of staged slices reaches the tile.
+template <int WARPS_M, int WARPS_N, int kMI, int kNI>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 512 / (WARPS_M * WARPS_N * 32))
+qconv3x3_mma_kernel(const int8_t* __restrict__ x,  // (B, H, W, C)
+                    const int8_t* __restrict__ w,  // (Co, 3, 3, C): (Co, 9C)
+                    Epilogue ep, Geom3x3 g) {
+  using T = Tile<WARPS_M, WARPS_N, kMI, kNI>;
+  constexpr int BM = T::BM, BN = T::BN, kThreads = T::kThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSlice = (BM + BN) * kLdS;
+  constexpr int kLdC = BN + 8;
+  constexpr int kRowStep = kThreads / kChunks;  // between a thread's A rows
+  constexpr int kRows = BM / kRowStep;          // A rows a thread stages
+  static_assert(BM % kRowStep == 0 && BM % kWarps == 0 && BN % kWarps == 0, "whole rows");
+  static_assert(BM / kWarps <= 32, "a lane holds each row of its warp");
+  extern __shared__ __align__(128) int8_t smem[];
+  int* Cs = reinterpret_cast<int*>(smem + kStages * kSlice);
+
+  const int Co = ep.Co, C = g.C, K = 9 * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int n_tiles = g.n_tiles.d;
+  const int items = ((g.M + BM - 1) / BM) * n_tiles;
+  const int G = gridDim.x;
+  const int nk = (K + kBK - 1) / kBK;
+  const int bid = blockIdx.x;
+  const int total = bid < items ? ((items - 1 - bid) / G + 1) * nk : 0;
+  const int a_row0 = tid / kChunks, a_col = (tid % kChunks) * 16;
+  const int tap0 = a_col / C, c0 = a_col - tap0 * C;
+
+  // the next slice to stage: slice st_kt of tile st_item, ring slot st_slot
+  int st_item = bid, st_kt = 0, st_slot = 0, m0 = 0, n0 = 0, tap = tap0, c = c0;
+  TapRow rows[kRows];
+  auto stage = [&]() {
+    if (st_kt == 0) {
+      const int mt = quot(st_item, g.n_tiles);
+      m0 = mt * BM;
+      n0 = (st_item - mt * n_tiles) * BN;
+      if (g.copy == kCopyBytes) {
+        rows[0] = tap_row(g, m0 + warp * (BM / kWarps) + min(lane, BM / kWarps - 1));
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) rows[j] = tap_row(g, m0 + a_row0 + j * kRowStep);
+      }
+      tap = tap0;
+      c = c0;
+    }
+    int8_t* d = smem + st_slot * kSlice;
+    const int k0 = st_kt * kBK;
+    if (g.copy != kCopyBytes) {
+      stage_taps<kRows>(d + a_row0 * kLdS + a_col, kRowStep * kLdS, x, rows, tap, c, g);
+      auto b_row = [&](int r) -> const int8_t* {
+        return n0 + r < Co ? w + static_cast<size_t>(n0 + r) * K : nullptr;
+      };
+      stage_slice<BN, kThreads, true>(d + BM * kLdS, b_row, w, k0, K, g.copy, tid);
+      for (c += kBK; c >= C; c -= C) ++tap;
+    } else {
+#pragma unroll
+      for (int h = 0; h < kBK; h += 32) {
+        if (h > 0 && k0 + h >= K) break;  // the mma step past K is skipped: unread
+        const int k = k0 + h + lane;
+        const int t = quot(k, g.C_div), ky = t / 3, kx = t - 3 * ky;
+        const long long off = static_cast<long long>(ky * g.W + kx) * C + (k - t * C);
+        const bool k_in = k < K;
+        const int ra = warp * (BM / kWarps), rb = warp * (BN / kWarps);
+        stage_bytes<BM / kWarps>(d + ra * kLdS + h, [&](int i) -> const int8_t* {
+          TapRow r;
+          r.off = __shfl_sync(0xffffffffu, rows[0].off, i);
+          r.iy = __shfl_sync(0xffffffffu, rows[0].iy, i);
+          r.ix = __shfl_sync(0xffffffffu, rows[0].ix, i);
+          return k_in && tap_in(g, r, ky, kx) ? x + r.off + off : nullptr;
+        }, lane);
+        stage_bytes<BN / kWarps>(d + (BM + rb) * kLdS + h, [&](int i) -> const int8_t* {
+          return k_in && n0 + rb + i < Co ? w + static_cast<size_t>(n0 + rb + i) * K + k
+                                          : nullptr;
+        }, lane);
+      }
+    }
+    st_slot = st_slot + 1 == kStages ? 0 : st_slot + 1;
+    if (++st_kt == nk) {
+      st_kt = 0;
+      st_item += G;
+    }
+  };
+
+  const float so = ep.out_kind == kOutInt8 ? *ep.s_out : 1.0f;
+  const float rs = ep.res != nullptr ? *ep.res_scale : 0.0f;
+
+  int acc[kMI][kNI][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) stage();
+    cp_async_commit();
+  }
+  int kt = 0, item = bid;
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (s + kStages - 1 < total) stage();
+    cp_async_commit();
+    const int8_t* d = smem + (s % kStages) * kSlice;
+    const int8_t* a = d + wm * 16 * kMI * kLdS;
+    const int8_t* b = d + (BM + wn * 8 * kNI) * kLdS;
+    mma_kstep<kMI, kNI>(a, b, 0, lane, acc);
+    if (kt * kBK + 32 < K) mma_kstep<kMI, kNI>(a, b, 32, lane, acc);
+    if (++kt < nk) continue;
+
+    fragments_to_smem<kMI, kNI>(Cs, kLdC, wm * 16 * kMI, wn * 8 * kNI, lane, acc);
+    __syncthreads();
+    const int mt = quot(item, g.n_tiles);
+    const int tn0 = (item - mt * n_tiles) * BN;
+    int groups = 1;  // the fewest (a power of two) that span the tile's channels
+    while (groups < BN / 8 && groups * 8 < Co - tn0) groups *= 2;
+    auto epilogue = [&](auto act) {
+      tile_epilogue<decltype(act)::value, BM, kThreads>(ep, Cs, kLdC, mt * BM, tn0, g.M, groups,
+                                                        tid, so, rs);
+    };
+    if (ep.act == kActSilu) {
+      epilogue(std::integral_constant<int, kActSilu>());
+    } else if (ep.act == kActRelu) {
+      epilogue(std::integral_constant<int, kActRelu>());
+    } else {
+      epilogue(std::integral_constant<int, kActNone>());
     }
     kt = 0;
     item += G;
@@ -445,166 +731,91 @@ qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
 }
 
 // ---------------------------------------------------------------------------
-// 3x3: implicit GEMM on the integer pipes (__dp4a)
+// launchers
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;       // output pixels per block
-constexpr int kBN = 64;       // output channels per block
-constexpr int kKW = 8;        // 32-bit words per K slice (32 int8 channels)
-constexpr int kLd = kKW + 1;  // padded shared-memory row (bank spread)
-constexpr int kThreads = 256;
-constexpr int kLoads = kBM * kKW / kThreads;  // words each thread stages
+// Launch state is kept per device: a process may launch on several cards,
+// and the shared-memory opt-in below holds only on the device that was
+// current when it was made.
+constexpr int kMaxDevices = 64;
 
-// Four int8 channels [c, c+4) of one row as a word; channels >= C are 0.
-__device__ __forceinline__ int load_word(const int8_t* row, int c, int C, bool vec) {
-  if (vec) return c < C ? *reinterpret_cast<const int*>(row + c) : 0;
-  uint32_t v = 0;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (c + t < C) v |= static_cast<uint32_t>(static_cast<uint8_t>(row[c + t])) << (8 * t);
-  }
-  return static_cast<int>(v);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-qconv_kernel(const int8_t* __restrict__ x,       // (B, H, W, C)
-             const int8_t* __restrict__ w,       // (Co, K, K, C)
-             Epilogue ep, int H, int W, int C, int Ho, int Wo, int stride, int M, int vec) {
-  __shared__ int As[kBM][kLd];
-  __shared__ int Bs[kBN][kLd];
-
-  const int Co = ep.Co;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int pad = K / 2;
-  const bool v4 = vec != 0;
-
-  // the rows this thread stages: pixel (b, oy, ox) and output channel
-  int ld_b[kLoads], ld_oy[kLoads], ld_ox[kLoads], ld_co[kLoads], ld_wd[kLoads];
-  bool ld_pm[kLoads];
-#pragma unroll
-  for (int r = 0; r < kLoads; ++r) {
-    const int idx = tid + r * kThreads;
-    const int row = idx / kKW;
-    ld_wd[r] = idx % kKW;
-    const int m = m0 + row;
-    ld_pm[r] = m < M;
-    const int mm = ld_pm[r] ? m : 0;
-    ld_ox[r] = mm % Wo;
-    ld_oy[r] = (mm / Wo) % Ho;
-    ld_b[r] = mm / (Wo * Ho);
-    ld_co[r] = n0 + row;
-  }
-
-  const int tx = tid % 16;  // output channels tx + 16j
-  const int ty = tid / 16;  // output pixels ty + 16i
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int tap = 0; tap < K * K; ++tap) {
-    const int ky = tap / K, kx = tap % K;
-    for (int c0 = 0; c0 < C; c0 += 4 * kKW) {
-#pragma unroll
-      for (int r = 0; r < kLoads; ++r) {
-        const int row = (tid + r * kThreads) / kKW;
-        const int c = c0 + 4 * ld_wd[r];
-        int a = 0;
-        if (ld_pm[r]) {
-          const int iy = ld_oy[r] * stride + ky - pad;
-          const int ix = ld_ox[r] * stride + kx - pad;
-          if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-            const int8_t* p = x + ((static_cast<size_t>(ld_b[r]) * H + iy) * W + ix) * C;
-            a = load_word(p, c, C, v4);
-          }
-        }
-        As[row][ld_wd[r]] = a;
-        int bw = 0;
-        if (ld_co[r] < Co) {
-          const int8_t* p = w + (static_cast<size_t>(ld_co[r]) * K * K + tap) * C;
-          bw = load_word(p, c, C, v4);
-        }
-        Bs[row][ld_wd[r]] = bw;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kw = 0; kw < kKW; ++kw) {
-        int av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[ty + 16 * i][kw];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[tx + 16 * j][kw];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  const float so = ep.out_kind == kOutInt8 ? *ep.s_out : 1.0f;
-  const float rs = ep.res != nullptr ? *ep.res_scale : 0.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tx + 16 * j;
-      if (co < Co) epilogue(ep, m, co, acc[i][j], so, rs);
-    }
-  }
-}
-
-// The card's SM count, or 0 when the runtime cannot tell.
+// The current device's SM count, or 0 when the runtime cannot tell.
 int sm_count() {
-  static int sms = 0;
+  static int sms[kMaxDevices];
   int dev = 0;
-  if (sms == 0 && cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
-// One wave of qconv1x1_mma_kernel blocks at most, over all the work items.
-template <int WARPS_M, int WARPS_N, int MI, int NI, int ACT>
-int launch_1x1(const int8_t* x, const int8_t* w, const Epilogue& ep, int M, int C, int vec,
-               cudaStream_t stream) {
-  constexpr int BM = WARPS_M * 16 * MI, BN = WARPS_N * 8 * NI;
-  constexpr int kThreads = WARPS_M * WARPS_N * 32;
-  constexpr int kSmem = kStages * (BM + BN) * kLdS + BM * (BN + 8) * 4;
-  auto kernel = qconv1x1_mma_kernel<WARPS_M, WARPS_N, MI, NI, ACT>;
-  static int resident = 0;  // blocks the card holds at once
-  if (resident == 0) {
+// One wave of `kernel` blocks at most (as many as the current device holds
+// at once) over `items` output tiles. `resident` is the calling launcher's
+// record, per device, of that wave; the first launch on a device opts the
+// kernel in to its dynamic shared memory there (above the 48 KB default).
+template <typename Kernel, typename... Args>
+int launch_wave(Kernel kernel, int (&resident)[kMaxDevices], int threads, int smem,
+                long long items, cudaStream_t stream, Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    const int sms = sm_count();
+    if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
+    const void* fn = reinterpret_cast<const void*>(kernel);
     int per_sm = 0;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    resident = sm_count() * (per_sm > 0 ? per_sm : 1);
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const long long items = static_cast<long long>((M + BM - 1) / BM) * ((ep.Co + BN - 1) / BN);
-  const int grid = static_cast<int>(items < resident ? items : resident);
-  kernel<<<grid, kThreads, kSmem, stream>>>(x, w, ep, M, C, vec);
+  const int grid = static_cast<int>(items < resident[dev] ? items : resident[dev]);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile: 128 x 64 (8 warps of 32 x 32); a conv too small to give each SM
-// one such tile takes 32 x 32 tiles (4 warps of 16 x 16), so more SMs share
-// its epilogue and each thread runs 8 outputs, not 32.
+// The tile: 128 x 64 (8 warps of 32 x 32). A conv with fewer such tiles than
+// the card has SMs takes 32 x 32 tiles (4 warps of 16 x 16), so that more SMs
+// share its work and each thread runs 8 outputs, not 32. The 3x3 gives Co <= 32
+// a 128 x 32 tile (8 warps of 16 x 32) and Co <= 16 a 256 x 16 one (8 warps of
+// 32 x 16): with K up to 9C long, mma steps on columns past Co would cost more
+// than the 1x1's, and the Co <= 16 convs (the tier's stems) have small K and
+// many rows, so a taller tile spreads each tile's fixed cost over more rows.
+using BigTile = Tile<4, 2, 2, 4>;
+using SmallTile = Tile<2, 2, 1, 2>;
+
+bool small_tiles(int M, int Co) { return BigTile::items(M, Co) < sm_count(); }
+
 template <int ACT>
-int launch_1x1_tiles(const int8_t* x, const int8_t* w, const Epilogue& ep, int M, int C,
-                     int vec, cudaStream_t stream) {
-  const int sms = sm_count();
-  if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
-  const long long big = static_cast<long long>((M + 127) / 128) * ((ep.Co + 63) / 64);
-  if (big < sms) return launch_1x1<2, 2, 1, 2, ACT>(x, w, ep, M, C, vec, stream);
-  return launch_1x1<4, 2, 2, 4, ACT>(x, w, ep, M, C, vec, stream);
+int launch_1x1(const int8_t* x, const int8_t* w, const Epilogue& ep, int M, int C, int copy,
+               cudaStream_t stream) {
+  static int resident[2][kMaxDevices];  // small, big tile
+  if (small_tiles(M, ep.Co))
+    return launch_wave(qconv1x1_mma_kernel<2, 2, 1, 2, ACT>, resident[0], SmallTile::kThreads,
+                       SmallTile::kSmem, SmallTile::items(M, ep.Co), stream, x, w, ep, M, C,
+                       copy);
+  return launch_wave(qconv1x1_mma_kernel<4, 2, 2, 4, ACT>, resident[1], BigTile::kThreads,
+                     BigTile::kSmem, BigTile::items(M, ep.Co), stream, x, w, ep, M, C, copy);
+}
+
+// Launches the 3x3 kernel on tile T; `resident` is T's record.
+template <int WARPS_M, int WARPS_N, int MI, int NI>
+int launch_3x3_on(const int8_t* x, const int8_t* w, const Epilogue& ep, Geom3x3 g,
+                  int (&resident)[kMaxDevices], cudaStream_t stream) {
+  using T = Tile<WARPS_M, WARPS_N, MI, NI>;
+  g.n_tiles = fast_div((ep.Co + T::BN - 1) / T::BN);
+  return launch_wave(qconv3x3_mma_kernel<WARPS_M, WARPS_N, MI, NI>, resident, T::kThreads,
+                     T::kSmem, T::items(g.M, ep.Co), stream, x, w, ep, g);
+}
+
+int launch_3x3(const int8_t* x, const int8_t* w, const Epilogue& ep, const Geom3x3& g,
+               cudaStream_t stream) {
+  static int resident[4][kMaxDevices];  // small, 256 x 16, 128 x 32, 128 x 64
+  if (small_tiles(g.M, ep.Co)) return launch_3x3_on<2, 2, 1, 2>(x, w, ep, g, resident[0], stream);
+  if (ep.Co <= 16) return launch_3x3_on<8, 1, 2, 2>(x, w, ep, g, resident[1], stream);
+  if (ep.Co <= 32) return launch_3x3_on<8, 1, 1, 4>(x, w, ep, g, resident[2], stream);
+  return launch_3x3_on<4, 2, 2, 4>(x, w, ep, g, resident[3], stream);
 }
 
 }  // namespace
@@ -612,23 +823,31 @@ int launch_1x1_tiles(const int8_t* x, const int8_t* w, const Epilogue& ep, int M
 // Both launch on `stream` and return cudaGetLastError(); the caller
 // allocates `out` and checks the code. out_kind: 0 int8, 1 float32,
 // 2 bfloat16. act: 0 none, 1 SiLU, 2 ReLU. bias and res may be null; s_out
-// and res_scale point at one float on the device. For the 3x3, vec != 0
-// promises that C % 4 == 0 and that x and w are 4-byte aligned; for the
-// 1x1, that C % 16 == 0 and that x and w are 16-byte aligned.
+// and res_scale point at one float on the device. vec == 0 sends the
+// operands through the byte-wise path. For the 1x1, vec != 0 promises that
+// C % 16 == 0 and that x and w are 16-byte aligned; for the 3x3 it allows
+// the 16- or 8-byte copies that C and the alignment of x and w admit.
 extern "C" int qconv3x3_launch(const int8_t* x, const int8_t* w, const float* scale,
                                const float* bias, const float* s_out,
                                const int8_t* res, const float* res_scale, void* out,
                                int out_kind, int act, int B, int H, int W, int C,
                                int Co, int stride, int vec, void* stream) {
+  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int Ho = (H - 1) / stride + 1;
   const int Wo = (W - 1) / stride + 1;
   const int M = B * Ho * Wo;
   if (M <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((M + kBM - 1) / kBM, (Co + kBN - 1) / kBN);
-  qconv_kernel<3><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, Epilogue{scale, bias, s_out, res, res_scale, out, out_kind, act, Co}, H, W,
-      C, Ho, Wo, stride, M, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int copy = kCopyBytes;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
+  if (vec != 0 && C % 16 == 0 && align % 16 == 0) {
+    copy = kCopy16;
+  } else if (vec != 0 && C % 8 == 0 && align % 8 == 0) {
+    copy = kCopy8;
+  }
+  const Epilogue ep = Epilogue{scale, bias, s_out, res, res_scale, out, out_kind, act, Co};
+  const Geom3x3 g{H, W, C, stride, M, copy, fast_div(Wo), fast_div(Ho), fast_div(C), {}};
+  return launch_3x3(x, w, ep, g, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int qconv1x1_launch(const int8_t* x, const int8_t* w, const float* scale,
@@ -640,7 +859,8 @@ extern "C" int qconv1x1_launch(const int8_t* x, const int8_t* w, const float* sc
   if (M <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
   const Epilogue ep = Epilogue{scale, bias, s_out, res, res_scale, out, out_kind, act, Co};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (act == kActSilu) return launch_1x1_tiles<kActSilu>(x, w, ep, M, C, vec, st);
-  if (act == kActRelu) return launch_1x1_tiles<kActRelu>(x, w, ep, M, C, vec, st);
-  return launch_1x1_tiles<kActNone>(x, w, ep, M, C, vec, st);
+  const int copy = vec != 0 ? kCopy16 : kCopyBytes;
+  if (act == kActSilu) return launch_1x1<kActSilu>(x, w, ep, M, C, copy, st);
+  if (act == kActRelu) return launch_1x1<kActRelu>(x, w, ep, M, C, copy, st);
+  return launch_1x1<kActNone>(x, w, ep, M, C, copy, st);
 }

@@ -6,9 +6,9 @@ Replace the TPU kernels `tensorrtx_tpu/ops/pallas/qconv.py::qconv3x3` and
 them and computes the other int8 convs of the chain with XLA's int8 conv;
 PyTorch has no int8×int8→int32 convolution on CUDA, so here the two
 kernels serve every int8 conv of the chain, 3×3 at stride 1 or 2 and 1×1,
-at any channel count: the 3×3 as an implicit GEMM with ``__dp4a``, the 1×1
-as an int8 GEMM (B·H·W, C) × (C, Co) on the tensor cores (``mma.sync``
-m16n8k32). The contract is the JAX producer contract
+at any channel count, both on the int8 tensor cores (``mma.sync``
+m16n8k32): the 1×1 as the GEMM (B·H·W, C) × (C, Co), the 3×3 as the
+implicit GEMM (B·Ho·Wo, 9·C) × (9·C, Co) over its taps. The contract is the JAX producer contract
 (`ops/qchain.py` ``ChainCtx.conv``/``conv_add``/``conv_out``):
 
     o = float(Σ x·w) · scale + bias  (+ float(res) · res_scale)
@@ -157,7 +157,8 @@ def _qconv(k, xq, wq, scale, bias, s_out, act, residual, res_scale, out_float,
     out = torch.empty((b, ho, wo, co), dtype=odt, device=dev)
     so = None if out_float else _scalar(s_out, dev)
     rs = None if residual is None else _scalar(res_scale, dev)
-    # the 3×3 reads 4-byte words, the 1×1 16-byte chunks; else byte by byte
+    # vec: the 1×1 may copy 16-byte chunks; the 3×3 may copy words, and
+    # picks 16- or 8-byte copies itself from C and the pointers; else byte by byte
     align = 4 if k == 3 else 16
     vec = int(c % align == 0 and xq.data_ptr() % align == 0 and wq.data_ptr() % align == 0)
 

@@ -110,6 +110,14 @@ QCONV_CASES = [
     (3, 1, 1, 173, 16, 128, 128, "silu", False, False),
     (3, 1, 2, 8, 16, 128, 128, "relu", True, False),
     (3, 1, 2, 40, 40, 80, 80, None, False, True),
+    # the 3×3 tensor-core GEMM's staging paths and tails: C = 3 byte by byte
+    # (the tier's stem, stride 2 on an odd map), C = 8 in 8-byte copies,
+    # Co = 8 and 16 (one and two n8 fragments), K = 9·48 and N = 40 tails
+    (3, 2, 2, 33, 25, 3, 16, None, False, True),
+    (3, 2, 1, 33, 25, 3, 16, "silu", False, False),
+    (3, 1, 2, 20, 20, 8, 16, "silu", False, False),
+    (3, 1, 32, 40, 40, 16, 8, "silu", False, False),
+    (3, 1, 1, 9, 11, 48, 40, "relu", True, False),
     (1, 1, 32, 40, 40, 256, 128, "silu", False, False),
     (1, 1, 1, 13, 7, 6, 10, "relu", True, False),
     (1, 1, 2, 20, 20, 80, 80, None, False, True),
@@ -189,6 +197,57 @@ def test_qconv1x1_kernel_gemm_is_exact(cuda, case):
     torch.cuda.synchronize()
     assert qk.launches_1x1 == before + 1
     exact = (xq.reshape(-1, c).long() @ wq.reshape(co, c).long().t()).reshape(b, h, w, co)
+    assert torch.equal(got.cpu(), exact.float())
+    assert torch.equal(got, qk.qconv_plain(xd, wq.to(cuda), ones.to(cuda), None, None, **common))
+
+
+# 3×3 shapes for the GEMM-exact check: (stride, B, H, W, C, Co, byte offset
+# of xq). Offset 8 leaves the 16-byte copies for 8-byte ones; 4 and 1 send
+# the operands byte by byte.
+GEMM3_CASES = [
+    (2, 1, 17, 13, 3, 16, 0),
+    (2, 32, 33, 25, 3, 16, 0),
+    (1, 1, 12, 10, 8, 16, 0),
+    (1, 2, 7, 9, 16, 8, 0),
+    (2, 1, 10, 8, 16, 32, 0),
+    (1, 1, 5, 7, 48, 40, 0),
+    (2, 2, 11, 9, 48, 16, 0),
+    (1, 2, 80, 80, 64, 64, 0),
+    (2, 2, 80, 80, 64, 64, 0),
+    (1, 1, 173, 16, 128, 128, 0),
+    (1, 1, 20, 20, 256, 256, 0),
+    (1, 1, 8, 8, 64, 64, 8),
+    (1, 1, 8, 8, 64, 64, 4),
+    (2, 1, 9, 7, 32, 16, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMM3_CASES, ids=str)
+def test_qconv3x3_kernel_gemm_is_exact(cuda, case):
+    """With a float32 exit, scale 1, no bias and no activation the output
+    is the int32 sum itself (random int8 sums stay far below 2²⁴): bit-equal
+    to the exact sums of the (tap, c)-ordered implicit GEMM."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    stride, b, h, w, c, co, offset = case
+    xq, wq, _, _, _ = qconv_inputs(sum(case), b, h, w, c, co, 3)
+    buf = torch.empty(xq.numel() + offset, dtype=torch.int8, device=cuda)
+    xd = buf[offset:].view(xq.shape)
+    xd.copy_(xq)
+    ones = torch.ones(co, dtype=torch.float32)
+    common = dict(act=None, out_float=True, out_dtype=torch.float32, stride=stride)
+    before = qk.launches_3x3
+    got = qk.qconv3x3(xd, wq.to(cuda), ones.to(cuda), None, None, **common)
+    torch.cuda.synchronize()
+    assert qk.launches_3x3 == before + 1
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    xp = torch.nn.functional.pad(xq.long(), (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, ky:ky + stride * (ho - 1) + 1:stride,
+                           kx:kx + stride * (wo - 1) + 1:stride]
+                        for ky in range(3) for kx in range(3)], 3).reshape(-1, 9 * c)
+    exact = (cols @ wq.reshape(co, 9 * c).long().t()).reshape(b, ho, wo, co)
+    assert int(exact.abs().max()) < 2 ** 24
     assert torch.equal(got.cpu(), exact.float())
     assert torch.equal(got, qk.qconv_plain(xd, wq.to(cuda), ones.to(cuda), None, None, **common))
 

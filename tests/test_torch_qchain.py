@@ -130,6 +130,11 @@ XLA_CASES = [
     ("conv", 1, 1, 1, 13, 7, 6, 10, "relu"),
     ("conv_add", 1, 1, 1, 9, 11, 512, 256, "silu"),
     ("conv_out", 1, 1, 2, 5, 7, 48, 32, None),
+    # the float-resident tier's stem shapes through the 3×3 tensor-core
+    # GEMM: the C = 3 stride-2 stem on an odd map, C = 8, and a float exit
+    ("conv", 3, 2, 1, 17, 13, 3, 16, "silu"),
+    ("conv", 3, 1, 2, 9, 11, 8, 16, "silu"),
+    ("conv_out", 3, 1, 1, 9, 11, 16, 32, None),
 ]
 
 
@@ -214,6 +219,68 @@ def test_plain_qconv1x1_is_an_exact_gemm(case):
     assert got.dtype == exp.dtype and torch.equal(got, exp)
     if out == "exact":
         assert torch.equal(got, acc.to(torch.float32))
+
+
+GEMM3_CASES = [
+    # (stride, B, H, W, C, Co, act, residual, out)
+    (2, 1, 17, 13, 3, 16, None, False, "exact"),     # the tier's C = 3 stem
+    (2, 2, 9, 11, 3, 16, None, False, "bfloat16"),
+    (1, 1, 12, 10, 8, 16, None, False, "exact"),     # C = 8: two taps a chunk
+    (1, 2, 7, 9, 16, 8, "silu", False, "int8"),      # Co = 8: one n8 fragment
+    (2, 1, 10, 8, 16, 32, None, False, "exact"),
+    (1, 1, 5, 7, 48, 40, "relu", True, "int8"),      # K (432) and N (40) tails
+    (2, 2, 11, 9, 48, 16, None, False, "float32"),
+    (1, 1, 6, 5, 128, 72, "silu", False, "int8"),
+]
+
+
+def im2col3x3(xq, stride):
+    """(B·Ho·Wo, 9·C) int64: row (b, oy, ox) holds the input pixels
+    (oy·s + ky − 1, ox·s + kx − 1), zero in the padding, ordered (tap, c)
+    with tap = 3·ky + kx: the A operand of the 3×3 kernel's implicit GEMM."""
+    b, h, w, c = xq.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    xp = torch.nn.functional.pad(xq.long(), (0, 0, 1, 1, 1, 1))
+    taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, 3).reshape(b * ho * wo, 9 * c)
+
+
+@pytest.mark.parametrize("case", GEMM3_CASES, ids=str)
+def test_plain_qconv3x3_is_an_exact_gemm(case):
+    """The 3×3 plain version is an exact int64 GEMM of the (tap, c)-ordered
+    im2col matrix with the OHWI weight read as (Co, 9·C), followed by the
+    epilogue in the kernel's order: the formulation the tensor-core kernel
+    computes, and the weight layout it relies on. "exact": float32 exit with
+    scale 1, no bias and no activation, the int32 sum itself."""
+    stride, b, hh, ww, c, co, act, residual, out = case
+    rng = np.random.default_rng(sum(case[:6]))
+    xq, wq, scale, bias = int8_inputs(rng, b, hh, ww, c, co, 3)
+    xq, wq, scale, bias = t(xq), ohwi(wq), t(scale), t(bias)
+    if out == "exact":
+        scale, bias, act = torch.ones(co), None, None
+    ho, wo = (hh - 1) // stride + 1, (ww - 1) // stride + 1
+    kw = {"act": act, "out_float": out != "int8", "stride": stride,
+          "out_dtype": torch.bfloat16 if out == "bfloat16" else torch.float32}
+    if residual:
+        kw["residual"] = t(rng.integers(-127, 128, (b, ho, wo, co), dtype=np.int8))
+        kw["res_scale"] = torch.tensor(0.01)
+    got = tk.qconv3x3(xq, wq, scale, bias, torch.tensor(0.02), **kw)
+
+    acc = (im2col3x3(xq, stride) @ wq.reshape(co, 9 * c).long().t()).reshape(b, ho, wo, co)
+    assert int(acc.abs().max()) < 2 ** 24
+    o = acc.to(torch.float32) * scale
+    if bias is not None:
+        o = o + bias
+    if residual:
+        o = o + kw["residual"].to(torch.float32) * kw["res_scale"]
+    o = tk.act_f(o, act)
+    exp = o.to(kw["out_dtype"]) if kw["out_float"] else tk.requant(o, torch.tensor(0.02))
+    assert got.dtype == exp.dtype and torch.equal(got, exp)
+    if out == "exact":
+        assert torch.equal(got, acc.to(torch.float32))
+    elif out == "int8":
+        assert float((exp.abs() == 127).float().mean()) < 0.5     # not all saturated
 
 
 # ---------------------------------------------------------------------------
