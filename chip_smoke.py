@@ -26,22 +26,37 @@ kernels:
   serving          bf16 `ServingPipeline.detect_images` b1/b32 (the float path)
   fq_calibrate     a bf16 `QuantizedEngine` (the float-resident int8 tier)
                    calibrated with entropy on 8 frames
-  kernel_vs_plain  quantize_int8 (both forms) at the tier's 80 conv inputs,
-                   qconv3x3/qconv1x1 (GEMM-exact check too) at its 80 conv
-                   shapes (the C = 3 and C = 16 stride-2 stems among them,
-                   with qconv3x3's time per shape),
+  kernel_vs_plain  quantize_int8 (both standalone forms) at the tier's 80
+                   conv inputs; the tier's quantize (`fused_quantize`:
+                   identity convs on every finite bf16 value at the tier's
+                   80 scales, 8 powers of two and one scale under 2^-100,
+                   from contiguous maps and channel slices, bit-equal to
+                   the division form); qconv3x3/qconv1x1 from the tier's
+                   bf16 inputs where they lie (channel slices with their
+                   pixel stride) at its 80 conv shapes, their GEMM-exact
+                   output bit-equal from bf16, float32 and channel-slice
+                   sources, with the time of the tier's route (the 1×1
+                   quantizing in its kernel; quantize_int8 of the input
+                   where it lies, then the int8 3×3) beside the unfused
+                   route (copy, quantize_int8, int8-source conv) and both
+                   kernels' time per shape in both routes,
                    quantize_int8_stochastic on 32×160×160×64,
                    conv3x3_planar/conv1x1_planar at five
                    shapes in float32 and bf16 (B = 1, 32), with times
   standalone_ops   the planar convs and both quantize kernels driven through
-                   their public ops (no serving path calls them)
-  fq_shadow        one tier forward (B = 2) with every quantize_int8 and
-                   qconv launch recomputed by its plain version
+                   their public ops (no serving path calls the planar convs
+                   or the stochastic quantize)
+  fq_shadow        one tier forward (B = 2) with every qconv call
+                   recomputed by its plain version (quantize, then conv)
   fq_parity        the tier with a float32 engine on the card against the
                    port's CPU path, same scales
   fq_serving       the bf16 tier serving b1 requests and b32 batches through
-                   `ServingPipeline.detect_images`: 80 quantize_int8, 35
-                   qconv3x3, 45 qconv1x1 and an NMS per forward
+                   `ServingPipeline.detect_images`: 45 qconv1x1 launches
+                   from float sources the kernel quantizes itself, 35
+                   quantize_int8 launches (the 3×3 inputs, where they lie)
+                   and 35 int8-source qconv3x3, and an NMS per forward; then
+                   a census of one request's copy and quantize kernels
+                   (profiler stacks) on this path and on the unfused route
 
 Weights are random (`RandomWeightMap(seed=0)`); no file outside the
 checkout is read. Exits non-zero, without the result line, if there is no
@@ -178,7 +193,9 @@ def phase_env():
     report = build.build()
     build_s = time.perf_counter() - t0
     ptxas = {k: [ln.strip() for ln in v["log"].splitlines()
-                 if "registers" in ln or "smem" in ln] for k, v in report.items()}
+                 if "registers" in ln or "smem" in ln or "entry function" in ln
+                 or "spill stores" in ln and not ln.strip().startswith("0 bytes stack frame, 0")]
+             for k, v in report.items()}
     log("env", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=nvcc_ver, kernels_built=sorted(report), build_s=round(build_s, 3),
         ptxas=ptxas)
@@ -600,47 +617,47 @@ def _reset_launches():
     from tensorrtx_tpu_torch.ops.cuda import conv_planar, nms_mask, qconv, quantize
 
     nms_mask.launches = 0
-    qconv.launches_3x3 = qconv.launches_1x1 = 0
+    qconv.launches_3x3 = qconv.launches_1x1 = qconv.launches_1x1_fq = 0
     quantize.launches = quantize.launches_stochastic = 0
     conv_planar.launches_3x3 = conv_planar.launches_1x1 = 0
 
 
 def _launches():
+    """Launches of each kernel since `_reset_launches`; "qconv1x1_fq" counts
+    the 1×1's launches from a float source (the quantize fused into its
+    staging), "qconv3x3" and "qconv1x1" the launches from an int8 source."""
     from tensorrtx_tpu_torch.ops.cuda import conv_planar, nms_mask, qconv, quantize
 
     return {"nms_mask": nms_mask.launches, "qconv3x3": qconv.launches_3x3,
-            "qconv1x1": qconv.launches_1x1, "quantize_int8": quantize.launches,
+            "qconv1x1": qconv.launches_1x1, "qconv1x1_fq": qconv.launches_1x1_fq,
+            "quantize_int8": quantize.launches,
             "quantize_int8_stochastic": quantize.launches_stochastic,
             "conv3x3_planar": conv_planar.launches_3x3,
             "conv1x1_planar": conv_planar.launches_1x1}
 
 
 @contextlib.contextmanager
-def _qconv_hook(hook, quantize=False):
-    """While the block runs, every call of a qconv wrapper (and, with
-    ``quantize``, of `quantize_int8`) runs as usual and then hands (kernel
-    name, args, kwargs, output) to hook."""
+def _qconv_hook(hook):
+    """While the block runs, every call of a qconv wrapper runs as usual
+    and then hands (kernel name, args, kwargs, output) to hook."""
     from tensorrtx_tpu_torch.ops.cuda import qconv as qk
-    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
 
-    real = {"qconv3x3": (qk, qk.qconv3x3), "qconv1x1": (qk, qk.qconv1x1)}
-    if quantize:
-        real["quantize_int8"] = (qz, qz.quantize_int8)
+    real = {"qconv3x3": qk.qconv3x3, "qconv1x1": qk.qconv1x1}
 
     def wrap(name):
         def fn(*args, **kw):
-            out = real[name][1](*args, **kw)
+            out = real[name](*args, **kw)
             hook(name, args, kw, out)
             return out
         return fn
 
-    for name, (mod, _) in real.items():
-        setattr(mod, name, wrap(name))
+    for name in real:
+        setattr(qk, name, wrap(name))
     try:
         yield
     finally:
-        for name, (mod, fn) in real.items():
-            setattr(mod, name, fn)
+        for name, fn in real.items():
+            setattr(qk, name, fn)
 
 
 def _compare(got, ref):
@@ -737,15 +754,17 @@ def _extra_specs(device, rng):
     ]
 
 
-def _qconv_work(spec, batch):
-    """(bytes, int8 operations) of one launch: input, weight, scale, bias,
-    residual read once, output written once; two operations per MAC."""
+def _qconv_work(spec, batch, in_bytes=1):
+    """(bytes, int8 operations) of one launch: input (`in_bytes` an
+    element), weight, scale, bias, residual read once, output written once;
+    two operations per MAC."""
     co, k, _, c = spec["wq"].shape
     stride = spec["kw"].get("stride", 1)
     h, w = spec["hw"]
     m = batch * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
     out_bytes = 1 if not spec["kw"].get("out_float") else spec["kw"]["out_dtype"].itemsize
-    n_bytes = batch * h * w * c + co * k * k * c + 8 * co + m * co * (out_bytes + spec["residual"])
+    n_bytes = (batch * h * w * c * in_bytes + co * k * k * c + 8 * co
+               + m * co * (out_bytes + spec["residual"]))
     return n_bytes, 2 * m * co * k * k * c
 
 
@@ -961,8 +980,10 @@ def phase_int8_serving(device, ce, bucket=BUCKET):
 # ---------------------------------------------------------------------------
 
 # per YOLO11n forward: 87 conv slots, 7 of them depthwise (float); of the 80
-# int8 convs 35 are 3×3 (28 at stride 1, 7 at stride 2) and 45 are 1×1
-FQ_LAUNCHES = {"quantize_int8": 80, "qconv3x3": 35, "qconv1x1": 45}
+# int8 convs 45 are 1×1, each quantizing its own float input as it stages it,
+# and 35 are 3×3 (28 at stride 1, 7 at stride 2), each a quantize_int8 of its
+# float input where it lies, then the int8-source 3×3
+FQ_LAUNCHES = {"quantize_int8": 35, "qconv3x3": 35, "qconv1x1": 0, "qconv1x1_fq": 45}
 
 
 def _calib_batch(device, size=SIZE, n=CAL_FRAMES):
@@ -994,21 +1015,20 @@ def _calibrated(precision, device, size, method, **over):
 
 
 def fq_main_path_calls(qe, size=SIZE):
-    """The tier's launches, in order, from one B = 1 forward: the qconv
-    specs (as `main_path_qconvs` gives them) and the quantize inputs'
-    shapes and dtype."""
-    qconvs, quants = [], []
+    """The tier's qconv launches, in order, from one B = 1 forward: specs as
+    `main_path_qconvs` gives them, the kwargs with the input scale ``sx``,
+    and the input's dtype and pixel stride ("pixel"; above C where the
+    input is a channel slice of a wider map, read where it lies)."""
+    calls = []
 
     def hook(name, args, kw, out):
-        if name == "quantize_int8":
-            quants.append((tuple(args[0].shape), args[0].dtype))
-            return
-        xq, wq, scale, bias, _ = args
-        qconvs.append({"name": name, "hw": tuple(xq.shape[1:3]), "c": xq.shape[3], "wq": wq,
-                       "scale": scale, "bias": bias, "kw": dict(kw), "residual": False})
-    with _qconv_hook(hook, quantize=True):
+        x, wq, scale, bias, _ = args
+        calls.append({"name": name, "hw": tuple(x.shape[1:3]), "c": x.shape[3], "wq": wq,
+                      "scale": scale, "bias": bias, "kw": dict(kw), "residual": False,
+                      "dtype": x.dtype, "pixel": x.stride(2)})
+    with _qconv_hook(hook):
         qe(np.zeros((1, size, size, 3), np.float32))
-    return qconvs, quants
+    return calls
 
 
 def _quant_input(shape, dtype, gen, device, exact):
@@ -1059,6 +1079,223 @@ def phase_quantize(device, shapes, batches=(1, 32)):
         log("kernel_vs_plain", kernel="quantize_int8", batch=b, shapes=len(args),
             dtype=str(shapes[0][1]), forms="recip and divide, bit-equal", **st)
     return out
+
+
+def _finite_bf16():
+    """Every finite bfloat16 value once (65,280)."""
+    b = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return b[torch.isfinite(b.float())]
+
+
+def phase_fused_quantize(device, sxs):
+    """The tier's quantize, held to the division form for every finite bf16
+    value: an identity conv (scale 1, no bias, float32 exit) returns the
+    int8 values the GEMM read. Five routes: a 1×1 at C = Co = 16 (quantized
+    in the kernel, 16-byte pieces through the float slots) from a contiguous
+    map and from a channel slice of a map 2C wide; a 3×3 with a center-tap
+    identity at C = 16 (quantize_int8 of the map where it lies, then the
+    int8 3×3) from the same two layouts; and a 3×3 at C = 3 (the stem's
+    map). The input holds the 65,280 values once, zero-padded. At each scale
+    of `sxs` (the tier's 80 int8 convs), 8 powers of two and 1e-33 (under
+    2^-100: every value by the exact path, scaled): bit-equal to
+    ``quantize_int8_plain(x, s, divide=True)``."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    x = torch.zeros(64 * 342 * 3, dtype=torch.bfloat16, device=device)
+    x[:65280] = _finite_bf16().to(device)
+    routes = []
+    for k, shape, ps in ((1, (1, 64, 64, 16), 1), (1, (1, 64, 64, 16), 2),
+                         (3, (1, 64, 64, 16), 1), (3, (1, 64, 64, 16), 2),
+                         (3, (1, 64, 342, 3), 1)):
+        c = shape[3]
+        wq = torch.zeros((c, k, k, c), dtype=torch.int8)
+        wq[torch.arange(c), k // 2, k // 2, torch.arange(c)] = 1
+        xd = torch.zeros((*shape[:3], ps * c), dtype=x.dtype, device=device)[..., (ps - 1) * c:]
+        xd.copy_(x[:int(np.prod(shape))].reshape(shape))
+        routes.append((qk.qconv3x3 if k == 3 else qk.qconv1x1, xd, wq.to(device),
+                       torch.ones(c, device=device), f"{k}x{k} C={c} pixel stride {ps * c}"))
+    scales = [float(v) for v in sxs] + [2.0 ** e for e in (-12, -9, -7, -5, -3, -1, 0, 3)] + [1e-33]
+    slow = []
+    for i, sv in enumerate(scales):
+        s = torch.tensor(sv, dtype=torch.float32, device=device)
+        want = qz.quantize_int8_plain(x, s, divide=True).float()
+        if i < len(sxs):    # the share of values the guard sends to the exact path (quant_math.cuh)
+            v = torch.clamp(x[:65280].float() * (torch.ones_like(s) / s), -127, 127)
+            slow.append(float(((v - torch.round(v)).abs() >= 0.5 - 2.0 ** -13).float().mean()))
+        for fn, xd, wq, ones, what in routes:
+            got = fn(xd, wq, ones, None, None, act=None, out_float=True, out_dtype=torch.float32,
+                     sx=s).reshape(-1)
+            if not torch.equal(got, want[:got.numel()]):
+                n = int((got != want[:got.numel()]).sum())
+                raise AssertionError(f"the tier's quantize ({what}) differs from the division "
+                                     f"form at s = {sv!r}: {n} of {got.numel()} values")
+    log("kernel_vs_plain", kernel="quantize_int8", route="the tier's: in the 1x1 kernel; "
+        "quantize_int8 before the 3x3", check="identity convs, every finite bf16 value",
+        values=65280, scales=len(scales), tier_scales=len(sxs), routes=[r[4] for r in routes],
+        bit_equal=True, guard_share_tier_scales=[min(slow), float(np.mean(slow)), max(slow)])
+    return len(scales)
+
+
+def _fq_input(spec, batch, gen, device, dtype=None, pixel=None):
+    """A float input of one tier launch at `batch`, laid out as the
+    forward's was (the last C channels of a map `pixel` wide when that is
+    above C, else contiguous), with |x / sx| up to about 200: some
+    saturate."""
+    h, w = spec["hw"]
+    c, p = spec["c"], spec["pixel"] if pixel is None else pixel
+    sx = spec["kw"]["sx"]
+    wide = (torch.randn((batch, h, w, p), generator=gen, device=device) * (50 * sx)).to(
+        dtype or spec["dtype"])
+    return wide[..., p - c:]
+
+
+def _nonzero_int8(rng, shape, device):
+    """Random int8 weights with no zero: every flipped input moves a sum."""
+    w = rng.integers(1, 128, shape) * rng.choice([-1, 1], shape)
+    return torch.from_numpy(w.astype(np.int8)).to(device)
+
+
+def _check_fused_exact(where, x, sx, wq, stride, rng):
+    """A qconv from the float source x (the tier's route) with weights that
+    have no zero, a float32 exit, scale 1 and no bias returns the int32 sums
+    of the int8 values it read: bit-equal to the exact sums of conv(
+    quantize_int8_plain(x, sx, divide=True), w)."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    wr = _nonzero_int8(rng, tuple(wq.shape), x.device)
+    ones = torch.ones(wq.shape[0], dtype=torch.float32, device=x.device)
+    kw = {"act": None, "out_float": True, "out_dtype": torch.float32}
+    fn = qk.qconv1x1
+    if wq.shape[1] == 3:
+        fn, kw["stride"] = qk.qconv3x3, stride
+    got = fn(x, wr, ones, None, None, sx=sx, **kw)
+    ref = qk.qconv_plain(qz.quantize_int8_plain(x, sx, divide=True), wr, ones, None, None, **kw)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"the tier's qconv GEMM is not exact at {where} ({x.dtype}, pixel "
+                             f"stride {x.stride(2)}): {int((got != ref).sum())} of "
+                             f"{ref.numel()} sums differ")
+
+
+def _unfused(x, sx, args, kw):
+    """One tier conv by the unfused route (the form before the tier read
+    its input where it lies), on this build's kernels: the NHWC copy of a
+    channel slice, quantize_int8 (division form), the int8-source conv."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    xq = qz.quantize_int8(x.contiguous(), sx, divide=True)
+    return (qk.qconv3x3 if args[0].shape[1] == 3 else qk.qconv1x1)(xq, *args, **kw)
+
+
+def phase_qconv_tier(device, specs, batches=(1, 32)):
+    """The tier's qconv3x3 / qconv1x1 calls from a bf16 source (the 1×1
+    quantizing it in its kernel; for the 3×3 quantize_int8 of it where it
+    lies, then the int8 3×3) at its 80 shapes, against their plain versions
+    (quantize_int8_plain, then qconv_plain), from inputs laid out as the
+    forward lays them out (channel slices read where they lie); their
+    GEMM-exact output (`_check_fused_exact`) bit-equal from that source, a
+    contiguous float32 one and a channel slice of a map 2C wide. Then, at
+    each batch and per kernel, the device time of one forward's calls by
+    this route ("ms"); of the unfused route on this build's kernels (the
+    NHWC copy of a slice, quantize_int8, the int8-source conv:
+    "unfused_ms", with its int8-source conv alone, "int8_source_ms"); of
+    the plain versions; the bound of the work (the float input read once,
+    int8 weights, bf16 output written once); `torch._int_mm` as in
+    `phase_qconv`; and at B = 32 each kernel's time per shape in both
+    routes."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=device).manual_seed(15)
+    fns = {"qconv3x3": qk.qconv3x3, "qconv1x1": qk.qconv1x1}
+    out = {}
+    for b in batches:
+        stats = {name: {"float_exit_max_abs_err": 0.0, "gemm_exact_bit_equal": 0} for name in fns}
+        runs = {name: [] for name in fns}
+        for spec in specs:
+            x = _fq_input(spec, b, gen, device)
+            kw = dict(spec["kw"])
+            sx = kw.pop("sx")
+            args = (spec["wq"], spec["scale"], spec["bias"], None)
+            stride = kw.get("stride", 1)
+            name = spec["name"]
+            where = f"B={b} {name} {spec['hw']} C={spec['c']} Co={spec['wq'].shape[0]}"
+            got = fns[name](x, *args, sx=sx, **kw)
+            ref = qk.qconv_plain(qz.quantize_int8_plain(x, sx, divide=True), *args, **kw)
+            st = stats[name]
+            st["float_exit_max_abs_err"] = max(st["float_exit_max_abs_err"],
+                                               _check_float(name, where, got, ref))
+            for src in (x, _fq_input(spec, b, gen, device, torch.float32, spec["c"]),
+                        _fq_input(spec, b, gen, device, pixel=2 * spec["c"])):
+                _check_fused_exact(where, src, sx, spec["wq"], stride, rng)
+                st["gemm_exact_bit_equal"] += 1
+            runs[name].append((x, sx, args, kw, spec))
+        for name, calls in runs.items():
+            fn = fns[name]
+            work = [_qconv_work(sp, b, in_bytes=2) for *_, sp in calls]
+            bound_ms, bound_by = _bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                                        INT8_OPS_PER_S)
+            st = stats[name] | {"launches_per_forward": len(calls), "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None,
+                                "sliced_inputs": sum(sp["pixel"] != sp["c"] for *_, sp in calls)}
+            if device.type == "cuda":
+                pre = [(qz.quantize_int8(x.contiguous(), sx, divide=True), a, k)
+                       for x, sx, a, k, _ in calls]
+                lib = {}
+                if name == "qconv1x1":
+                    mats = [(q.reshape(-1, q.shape[-1]), a[0].reshape(a[0].shape[0], -1).t())
+                            for q, a, _ in pre]
+                    lib = {"library_ms": (lambda: [torch._int_mm(m, w) for m, w in mats], 10)}
+                else:
+                    mats = [(_im2col(q, k.get("stride", 1)), a[0].reshape(a[0].shape[0], -1).t())
+                            for q, a, k in pre if a[0].shape[3] % 8 == 0]
+                    st["int_mm_im2col_launches"] = len(mats)
+                    lib = {"int_mm_im2col_ms": (lambda: [torch._int_mm(m, w) for m, w in mats], 10)}
+                st |= _timings(
+                    ms=(lambda: [fn(x, *a, sx=sx, **k) for x, sx, a, k, _ in calls], 10),
+                    unfused_ms=(lambda: [_unfused(x, sx, a, k) for x, sx, a, k, _ in calls], 10),
+                    int8_source_ms=(lambda: [fn(q, *a, **k) for q, a, k in pre], 10),
+                    plain_ms=(lambda: [qk.qconv_plain(qz.quantize_int8_plain(x, sx, divide=True),
+                                                      *a, **k) for x, sx, a, k, _ in calls], 3),
+                    **lib)
+                del mats, pre
+                if b == 32:
+                    _tier_shapes(name, calls, b)
+            stats[name] = st
+            log("kernel_vs_plain", kernel=name, path="tier",
+                source="bf16, quantized in the 1x1 kernel; by quantize_int8 before the 3x3",
+                batch=b, shapes=len(calls), **st)
+        out[b] = stats
+    return out
+
+
+def _tier_shapes(name, calls, batch):
+    """The tier's time per distinct launch shape of one kernel (all of its
+    calls at that shape in one forward) by the tier's route, beside the
+    unfused route's (copy, quantize_int8, int8-source conv), largest first."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    fn = qk.qconv3x3 if name == "qconv3x3" else qk.qconv1x1
+    groups = {}
+    for x, sx, a, k, sp in calls:
+        shape = {"h": sp["hw"][0], "w": sp["hw"][1], "c": sp["c"], "co": sp["wq"].shape[0],
+                 "stride": k.get("stride", 1), "pixel": sp["pixel"]}
+        groups.setdefault(tuple(shape.items()), []).append((x, sx, a, k, sp))
+    rows, sources = [], []
+    for shape, grp in groups.items():
+        t = _timings(ms=(lambda: [fn(x, *a, sx=sx, **k) for x, sx, a, k, _ in grp], 10),
+                     unfused_ms=(lambda: [_unfused(x, sx, a, k) for x, sx, a, k, _ in grp], 10))
+        sources.append(t["ms_source"])
+        n_bytes = sum(_qconv_work(sp, batch, in_bytes=2)[0] for *_, sp in grp)
+        rows.append(dict(shape) | {"launches": len(grp), "ms": t["ms"],
+                                   "unfused_ms": t["unfused_ms"],
+                                   "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3})
+    rows.sort(key=lambda r: -r["ms"])
+    log(f"{name}_shapes", path="tier", batch=batch, route="tier vs unfused",
+        ms_source=_source(*sources), shapes=rows)
 
 
 def phase_stochastic(device, shape=(32, 160, 160, 64)):
@@ -1187,9 +1424,9 @@ def phase_standalone_ops(device):
     to_planar → conv3x3_planar → conv3x3_planar with a residual →
     conv1x1_planar → from_planar → quantize_int8 and
     quantize_int8_stochastic of the result; the same chain in the plain
-    versions agrees. No serving path calls these kernels (nor does any
-    path of the JAX package), so this run is where their counts come
-    from."""
+    versions agrees. No serving path calls the planar convs or the
+    stochastic quantize (nor does any path of the JAX package), so this run
+    is where their counts come from."""
     from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
     from tensorrtx_tpu_torch.ops.cuda import quantize as qz
 
@@ -1232,45 +1469,52 @@ def phase_standalone_ops(device):
     return launches
 
 
-def phase_fq_shadow(qe, frames, src_hw):
-    """One forward of the tier through ServingPipeline with every
-    quantize_int8 and qconv launch recomputed by its plain version on the
-    same inputs: bit-equal quantized activations, float exits within
-    `_check_float`. Returns each kernel's worst error."""
-    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+def _fq_plain(args, kw):
+    """The plain version of a tier launch: the division-form quantize of its
+    float input, then qconv_plain."""
     from tensorrtx_tpu_torch.ops.cuda import qconv as qk
     from tensorrtx_tpu_torch.ops.cuda import quantize as qz
 
-    worst = {"quantize_int8": 0.0, "qconv3x3": 0.0, "qconv1x1": 0.0}
-    n = {"quantize_int8": 0, "qconv3x3": 0, "qconv1x1": 0}
+    kw = dict(kw)
+    sx = kw.pop("sx")
+    return qk.qconv_plain(qz.quantize_int8_plain(args[0], sx, divide=True), *args[1:], **kw)
+
+
+def phase_fq_shadow(qe, frames, src_hw):
+    """One forward of the tier through ServingPipeline with every qconv
+    call (each from its float input) recomputed by its plain version on the
+    same inputs: float exits within `_check_float`. Returns each kernel's
+    worst error."""
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+
+    worst = {"qconv3x3": 0.0, "qconv1x1": 0.0}
+    n = {"qconv3x3": 0, "qconv1x1": 0}
+    sliced = [0]
 
     def hook(name, args, kw, got):
-        where = f"{name} x{tuple(args[0].shape)}"
+        where = f"{name} x{tuple(args[0].shape)} pixel stride {args[0].stride(2)}"
         n[name] += 1
-        if name == "quantize_int8":
-            ref = qz.quantize_int8_plain(*args, **kw)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"{where}: {int((got != ref).sum())} elements differ "
-                                     "from the plain version")
-            return
-        err = _check_float(name, where, got, qk.qconv_plain(*args, **kw))
-        worst[name] = max(worst[name], err)
+        sliced[0] += args[0].stride(2) != args[0].shape[3]
+        if kw.get("sx") is None:
+            raise AssertionError(f"{where}: the tier launched a qconv from an int8 source")
+        worst[name] = max(worst[name], _check_float(name, where, got, _fq_plain(args, kw)))
 
     pipe = ServingPipeline(qe, *BUCKET)
     _reset_launches()
-    with _qconv_hook(hook, quantize=True):
+    with _qconv_hook(hook):
         out = pipe(frames, src_hw)
     if qe.device.type == "cuda":
         torch.cuda.synchronize()
     launches = _launches()
-    if n != FQ_LAUNCHES or (qe.device.type == "cuda" and (
+    calls = {"qconv3x3": FQ_LAUNCHES["qconv3x3"], "qconv1x1": FQ_LAUNCHES["qconv1x1_fq"]}
+    if n != calls or (qe.device.type == "cuda" and (
             any(launches[k] != v for k, v in FQ_LAUNCHES.items()) or launches["nms_mask"] < 1)):
         raise AssertionError(f"the tier's forward made {n} calls and {launches} launches, "
-                             f"not {FQ_LAUNCHES} and an NMS")
+                             f"not {calls} and {FQ_LAUNCHES} and an NMS")
     if not all(torch.isfinite(v.float()).all() for v in out.values()):
         raise AssertionError("tier shadow forward: non-finite detections")
     log("fq_shadow", batch=frames.shape[0], dtype=str(qe.dtype), calls=n, launches=launches,
-        quantize_bit_equal=True, worst_float_exit_abs_err=worst)
+        sliced_inputs=sliced[0], worst_float_exit_abs_err=worst)
     return worst
 
 
@@ -1283,20 +1527,22 @@ FQ_FLIP_MAX = 0.3
 
 def _int8_inputs(qe, frames, src_hw, bucket=BUCKET, skip=None):
     """One tier forward through ServingPipeline: its raw outputs and
-    {slot index: the int8 tensor quantize_int8 made of that conv's input}
-    (the slot `skip`, run in float, has none)."""
+    {slot index: that conv's int8 input}, the division-form quantize of the
+    float input at the sx the conv was given (what the conv staged:
+    `fused_quantize` and `fq_shadow` hold the kernels to it); the slot
+    `skip`, run in float, has none."""
     from tensorrtx_tpu_torch.core.runner import ServingPipeline
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
 
     outs = []
 
     def hook(name, args, kw, out):
-        if name == "quantize_int8":
-            outs.append(out)
-    with _qconv_hook(hook, quantize=True):
+        outs.append(qz.quantize_int8_plain(args[0], kw["sx"], divide=True))
+    with _qconv_hook(hook):
         raw = ServingPipeline(qe, *bucket)(frames, src_hw)
     order = [sl.index for sl in qe.slots() if not sl.depthwise and sl.index != skip]
     if len(outs) != len(order):
-        raise AssertionError(f"{len(outs)} quantize calls for {len(order)} int8 convs")
+        raise AssertionError(f"{len(outs)} qconv calls for {len(order)} int8 convs")
     return raw, dict(zip(order, outs))
 
 
@@ -1390,14 +1636,62 @@ def phase_fq_parity(device, size=SIZE, bucket=BUCKET):
         fault_controls=_fault_controls(qe, frames, src_hw, ref, ref_q, bucket))
 
 
+def _unfused_conv2d(x, wq, scale, sx, bias, stride):
+    """`ops/quant_ctx.quant_conv2d` by the unfused route (`_unfused`)."""
+    kw = dict(act=None, out_float=True, out_dtype=x.dtype)
+    if wq.shape[1] == 3:
+        kw["stride"] = stride
+    return _unfused(x.permute(0, 2, 3, 1), sx, (wq, scale, bias, None), kw).permute(0, 3, 1, 2)
+
+
+def _copy_census(fn):
+    """One call of fn under the profiler with Python stacks: the copy
+    kernels (``direct_copy``) and quantize kernels it launched, and the
+    ``aten::copy_`` calls made from `ops/quant_ctx.py`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"copy_kernels": sum("direct_copy" in k for k in kernels),
+            "quantize_kernels": sum("quantize_kernel" in k for k in kernels),
+            "quant_ctx_copies": sum(e.name == "aten::copy_"
+                                    and any("quant_ctx.py" in f for f in (e.stack or []))
+                                    for e in events)}
+
+
 def phase_fq_serving(device, qe, bucket=BUCKET):
     """The tier (bf16 engine) serving b1 requests and b32 batches through
-    `ServingPipeline.detect_images`: FQ_LAUNCHES and an NMS per forward."""
+    `ServingPipeline.detect_images`: FQ_LAUNCHES and an NMS per forward;
+    then one b1 request under the profiler with Python stacks, on this path
+    and with `quant_conv2d` swapped for the unfused route
+    (`_unfused_conv2d`): this path makes no copy in `ops/quant_ctx.py` and
+    launches a quantize kernel for the 3×3 inputs only, and the census shows
+    the copies and launches the tier's route took away."""
     from tensorrtx_tpu_torch.core.runner import ServingPipeline
+    from tensorrtx_tpu_torch.ops import quant_ctx
 
     pipe = ServingPipeline(qe, *bucket)
-    return _timed_serving("fq_serving", device, pipe.detect_images, FQ_LAUNCHES, bucket,
-                          precision="bf16", scales=len(qe.act_scales))
+    launches, timing = _timed_serving("fq_serving", device, pipe.detect_images, FQ_LAUNCHES,
+                                      bucket, precision="bf16", scales=len(qe.act_scales))
+    if device.type == "cuda":
+        one, _ = _serving_images(bucket)
+        fused = _copy_census(lambda: pipe.detect_images(one))
+        real = quant_ctx.quant_conv2d
+        quant_ctx.quant_conv2d = _unfused_conv2d
+        try:
+            unfused = _copy_census(lambda: pipe.detect_images(one))
+        finally:
+            quant_ctx.quant_conv2d = real
+        log("fq_serving_copies", batch=1, fused=fused, unfused=unfused)
+        if fused["quant_ctx_copies"] or fused["quantize_kernels"] != FQ_LAUNCHES["quantize_int8"]:
+            raise AssertionError(f"the tier's forward copied, or quantized other than the 3x3 "
+                                 f"inputs, outside its convs: {fused}")
+    return launches, timing
 
 
 def main():
@@ -1425,9 +1719,10 @@ def main():
     qe, scales, cal_s = _calibrated("bf16", device, SIZE, "entropy", conf_thresh=0.25)
     log("fq_calibrate", method="entropy", frames=CAL_FRAMES, scales=len(scales),
         seconds=cal_s, scale_range=[float(scales.min()), float(scales.max())])
-    fq_qconvs, fq_quants = fq_main_path_calls(qe)
-    qz_st = phase_quantize(device, fq_quants)
-    qc_fq = phase_qconv(device, fq_qconvs, path="tier")
+    fq_qconvs = fq_main_path_calls(qe)
+    qz_st = phase_quantize(device, [((1, *sp["hw"], sp["c"]), sp["dtype"]) for sp in fq_qconvs])
+    fused_scales = phase_fused_quantize(device, [sp["kw"]["sx"] for sp in fq_qconvs])
+    qc_fq = phase_qconv_tier(device, fq_qconvs)
     sr = phase_stochastic(device)
     planar = phase_planar(device)
     standalone = phase_standalone_ops(device)
@@ -1437,9 +1732,11 @@ def main():
 
     missing = [k for k in ("nms_mask", "qconv3x3", "qconv1x1") if int8_launches[k] == 0]
     missing += [f"{k} (float path)" for k in ("nms_mask",) if launches[k] == 0]
-    missing += [f"{k} (int8 tier)" for k in ("nms_mask", *FQ_LAUNCHES) if fq_launches[k] == 0]
-    missing += [f"{k} (standalone ops)" for k in ("quantize_int8_stochastic", "conv3x3_planar",
-                                                  "conv1x1_planar") if standalone[k] == 0]
+    missing += [f"{k} (int8 tier)" for k in ("nms_mask", "qconv3x3", "qconv1x1_fq",
+                                             "quantize_int8") if fq_launches[k] == 0]
+    missing += [f"{k} (standalone ops)" for k in ("quantize_int8", "quantize_int8_stochastic",
+                                                  "conv3x3_planar", "conv1x1_planar")
+                if standalone[k] == 0]
     if missing:
         raise AssertionError(f"a main path launched no {missing} kernel")
 
@@ -1466,11 +1763,17 @@ def main():
                     "gathered through L1 from its tap's pixel (one 16-byte copy for "
                     "C % 16 == 0, two 8-byte ones for C % 8 == 0; else a warp per row, a "
                     "lane per K byte), epilogue through shared memory spread over all "
-                    "threads, activation and exit read at run time",
+                    "threads, activation and exit read at run time; rows a pixel stride "
+                    "apart (a channel slice read where it lies); from a float source (the "
+                    "int8 tier) the wrapper first runs quantize_int8 on the map where it "
+                    "lies, then this kernel on its int8 map",
         "qconv1x1": "int8 GEMM on the tensor cores (mma.sync m16n8k32 s8, ldmatrix fragments): "
                     "one wave of blocks over 128x64 output tiles (32x32 when fewer tiles "
                     "than SMs), 64-byte K slices in a 3-deep cp.async ring across tiles, "
-                    "epilogue through shared memory, 8 channels a thread",
+                    "epilogue through shared memory, 8 channels a thread; from a float "
+                    "source (the int8 tier) it quantizes while staging: 16-byte pieces by "
+                    "cp.async into 2 float slots, quantized into the int8 slice one slice "
+                    "ahead of the mma steps by the thread that copied them",
     }
     for name, line in (("qconv3x3", 103), ("qconv1x1", 205)):
         s1, s32 = qc[1][name], qc[32][name]
@@ -1498,27 +1801,55 @@ def main():
             "float_exit_max_abs_err": max(s1["float_exit_max_abs_err"],
                                           s32["float_exit_max_abs_err"], t1["float_exit_max_abs_err"],
                                           t32["float_exit_max_abs_err"], fq_shadow[name]),
-            "launches_int8_tier": fq_launches[name],
-            "int8_tier": {"launches_per_forward": t1["launches_per_forward"],
+            "launches_int8_tier": fq_launches["qconv3x3" if name == "qconv3x3" else "qconv1x1_fq"],
+            "int8_tier": {"source": "bf16: by quantize_int8, then this kernel" if name == "qconv3x3"
+                          else "bf16, quantized in the kernel",
+                          "launches_per_forward": t1["launches_per_forward"],
                           "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
                           "library_ms": t1["library_ms"], "ms_b32": t32["ms"],
                           "plain_ms_b32": t32["plain_ms"], "bound_ms_b32": t32["bound_ms"],
-                          "library_ms_b32": t32["library_ms"]},
+                          "library_ms_b32": t32["library_ms"],
+                          "unfused_ms": t1["unfused_ms"], "unfused_ms_b32": t32["unfused_ms"],
+                          "int8_source_ms": t1["int8_source_ms"],
+                          "int8_source_ms_b32": t32["int8_source_ms"]},
             "ms_source": _source(*(x["ms_source"] for x in (s1, s32, t1, t32))),
         })
     q1, q32 = qz_st[1], qz_st[32]
+    fused = {b: {k: qc_fq[b]["qconv3x3"][k] + qc_fq[b]["qconv1x1"][k]
+                 for k in ("ms", "unfused_ms", "int8_source_ms", "bound_ms")} for b in (1, 32)}
     kernels.append({
         "name": "quantize_int8", "route": "cuda",
         "source": "tensorrtx_tpu_torch/csrc/quantize.cu",
         "replaces": "tensorrtx_tpu/ops/pallas/quantize.py:29",
-        "launches": fq_launches["quantize_int8"], "max_abs_err": 0.0,
+        "design": "the division form with no division per element (quant_math.cuh: x * fl(1/s), "
+                  "and the values within 2^-13 of a half-integer h decided by the exact FMA "
+                  "residual x - h*s; x and s scaled by 2^+-64 at scales beyond 2^+-100), one "
+                  "function for both routes: on the int8 tier inside the 1x1 kernel "
+                  "(csrc/qconv.cu, while it stages each K slice) and, for the 3x3 inputs, "
+                  "this standalone kernel reading the map where it lies (a channel slice by "
+                  "its pixel stride); standalone in standalone_ops (both forms)",
+        "launches": fq_launches["quantize_int8"] + fq_launches["qconv1x1_fq"],
+        "launches_standalone_tier": fq_launches["quantize_int8"],
+        "launches_in_qconv1x1_tier": fq_launches["qconv1x1_fq"],
+        "launches_standalone_ops": standalone["quantize_int8"], "max_abs_err": 0.0,
+        "fused_bit_equal_scales": fused_scales,
         "ms": q1["ms"], "plain_ms": q1["plain_ms"], "bound_ms": q1["bound_ms"],
         "bound_by": q1["bound_by"], "library_ms": None,
-        "per": "all launches of one B=1 forward of the int8 tier (division form)",
+        "per": "standalone kernel (division form) on the 80 conv inputs of one B=1 forward",
         "launches_per_forward": q1["launches_per_forward"],
         "ms_b32": q32["ms"], "plain_ms_b32": q32["plain_ms"], "bound_ms_b32": q32["bound_ms"],
         "library_ms_b32": None,
-        "ms_source": _source(q1["ms_source"], q32["ms_source"]),
+        "tier": {"per": "the tier's 80 int8 convs of one forward by its route (35 quantize_int8 + "
+                        "35 int8 3x3, 45 1x1 quantizing in the kernel), against the unfused "
+                        "route (copies, standalone quantize, int8-source convs)",
+                 "ms": fused[1]["ms"], "unfused_ms": fused[1]["unfused_ms"],
+                 "int8_source_ms": fused[1]["int8_source_ms"], "bound_ms": fused[1]["bound_ms"],
+                 "ms_b32": fused[32]["ms"], "unfused_ms_b32": fused[32]["unfused_ms"],
+                 "int8_source_ms_b32": fused[32]["int8_source_ms"],
+                 "bound_ms_b32": fused[32]["bound_ms"]},
+        "ms_source": _source(q1["ms_source"], q32["ms_source"], qc_fq[1]["qconv3x3"]["ms_source"],
+                             qc_fq[32]["qconv3x3"]["ms_source"], qc_fq[1]["qconv1x1"]["ms_source"],
+                             qc_fq[32]["qconv1x1"]["ms_source"]),
     })
     kernels.append({
         "name": "quantize_int8_stochastic", "route": "cuda",

@@ -1,6 +1,7 @@
 """Where the int8 convs' time goes, on one NVIDIA card.
 
-    python3 qconv_probe.py [--against NAME=path/to/qconv.cu ...]
+    python3 qconv_probe.py [--tier] [--layer [--package DIR]]
+                           [--against NAME=path/to/qconv.cu ...]
 
 Builds `tensorrtx_tpu_torch/csrc/qconv.cu` as `chip_smoke.py` does and
 prints one JSON line per measurement:
@@ -9,6 +10,18 @@ prints one JSON line per measurement:
              activation (none, SiLU) and exit (int8, bf16, float32), and the
              GEMM-exact form (float32, scale 1, no bias); beside them
              `torch._int_mm` on the same operands and the shape's byte bound
+  tier       with --tier: `chip_smoke.phase_qconv_tier`, the float-resident
+             tier's launches from their bf16 inputs (the 1×1 quantizing in
+             the kernel, the 3×3 after quantize_int8) against the unfused
+             route (copy, quantize_int8, int8-source conv) at B = 1 and 32,
+             with the time per shape of both kernels in both routes
+  layer      with --layer: the tier's int8-conv layer of one forward, every
+             `ops/quant_ctx.quant_conv2d` call (80) on bf16 inputs laid out
+             as the forward lays them out, timed together at B = 1 and 32
+             with its largest device items; --package DIR times the
+             `tensorrtx_tpu_torch` under DIR (another checkout, such as the
+             parent commit unpacked), so that two trees can be timed on
+             the same card in turns, each in its own process
   paths      with --against: every 3×3 and every 1×1 launch of one forward
              of the chained int8 path and of the float-resident tier, at
              B = 1 and 32, timed for this build and for each named source
@@ -20,8 +33,9 @@ prints one JSON line per measurement:
              "<path>:<build>")
 
 Device times come from `torch.profiler` (`chip_smoke._timings`). Weights are
-random, as in `chip_smoke.py`; the tier is calibrated with absmax (its conv
-shapes do not depend on the method). Exits non-zero without a CUDA device.
+random, as in `chip_smoke.py`; the tier is calibrated as there (entropy on 8
+frames): the scales set where x / sx falls against half-integers, which the
+1×1's quantize pays for. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,11 +58,11 @@ EPILOGUE_SHAPES = [
 
 def _launchers(lib):
     """{k: the library's qconv{k}x{k}_launch}, typed as ops/cuda/qconv.py
-    types them."""
+    types them (the other source must export the same interface)."""
     fns = {}
-    for k, n_int in ((3, 9), (1, 8)):
+    for k, n in ((3, 8), (1, 9)):   # n pointers, then 9 ints (`qconv._launcher`)
         fn = getattr(lib, f"qconv{k}x{k}_launch")
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[k] = fn
     return fns
@@ -100,6 +114,49 @@ def probe_epilogue(device):
                ms_source=t["ms_source"], **row)
 
 
+def probe_tier_layer(device, top=8):
+    """Every `quant_conv2d` call of one tier forward, recorded at B = 1
+    (kernel, channels, pixel stride, map size, weights, scales), then timed
+    together at each batch on random bf16 inputs of the same layout: the
+    last C channels of a ``channels_last`` map as wide as the pixel stride,
+    viewed as NCHW, with |x / sx| up to about 200. Whatever the timed tree's
+    `quant_conv2d` does with its input (copies, quantize launches, the
+    kernels) is in the time."""
+    from tensorrtx_tpu_torch.ops import quant_ctx
+
+    qe, _, _ = cs._calibrated("bf16", device, cs.SIZE, "entropy", conf_thresh=0.25)
+    specs, real = [], quant_ctx.quant_conv2d
+
+    def hook(x, wq, scale, sx, bias, stride):
+        b, c, h, w = x.shape
+        specs.append((c, x.stride(3) if w > 1 else c, h, w, wq, scale, sx, bias, stride))
+        return real(x, wq, scale, sx, bias, stride)
+    quant_ctx.quant_conv2d = hook
+    try:
+        qe(np.zeros((1, cs.SIZE, cs.SIZE, 3), np.float32))
+    finally:
+        quant_ctx.quant_conv2d = real
+    gen = torch.Generator(device=device).manual_seed(21)
+    for b in (1, 32):
+        calls = []
+        for c, p, h, w, wq, scale, sx, bias, stride in specs:
+            wide = (torch.randn((b, p, h, w), generator=gen, device=device) * (50 * sx)).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            calls.append((wide[:, p - c:], wq, scale, sx, bias, stride))
+        outs = [real(*a) for a in calls]
+        if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+            raise AssertionError("the tier's int8 convs gave non-finite outputs")
+        del outs
+        row = {}
+        for k in (3, 1):
+            sel = [a for a in calls if a[1].shape[1] == k]
+            row[f"ms_{k}x{k}"] = cs._timings(ms=(lambda: [real(*a) for a in sel], 10))["ms"]
+        ms, items, source = cs._device_profile(lambda: [real(*a) for a in calls], 10, top)
+        cs.log("tier_layer", package=str(Path(quant_ctx.__file__).resolve().parents[2]),
+               batch=b, calls=len(calls), sliced=sum(sp[1] != sp[0] for sp in specs), ms=ms,
+               **row, ms_source=source, top_device_items=items)
+
+
 def probe_paths(device, libs):
     from tensorrtx_tpu_torch.ops.cuda import qconv as qk
 
@@ -107,9 +164,10 @@ def probe_paths(device, libs):
     cal, _ = cs.frames_of(cs.synthetic_frames(4, [(cs.SIZE, cs.SIZE)] * cs.CAL_FRAMES),
                           (cs.SIZE, cs.SIZE))
     ce.calibrate([cal])
-    qe, _, _ = cs._calibrated("bf16", device, cs.SIZE, "absmax", conf_thresh=0.25)
+    qe, _, _ = cs._calibrated("bf16", device, cs.SIZE, "entropy", conf_thresh=0.25)
     paths = {"chain": cs.main_path_qconvs(ce, cs.SIZE),
-             "tier": cs.fq_main_path_calls(qe, cs.SIZE)[0]}
+             "tier": [dict(sp, kw={k: v for k, v in sp["kw"].items() if k != "sx"})
+                      for sp in cs.fq_main_path_calls(qe, cs.SIZE)]}   # int8 sources
     rng = np.random.default_rng(7)
     names = list(libs)
     order = [names[0], *names[1:], *names[1:][::-1], names[0]]
@@ -153,17 +211,32 @@ def probe_paths(device, libs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=SRC.cu",
-                    help="another qconv.cu to time on the paths' 3×3 and 1×1 shapes")
+                    help="another qconv.cu (same interface, beside its own quant_math.cuh) "
+                         "to time on the paths' 3×3 and 1×1 shapes")
+    ap.add_argument("--tier", action="store_true",
+                    help="time the tier's launches against the unfused route")
+    ap.add_argument("--layer", action="store_true",
+                    help="time the tier's quant_conv2d calls of one forward")
+    ap.add_argument("--package", metavar="DIR",
+                    help="with --layer: time the tensorrtx_tpu_torch under DIR")
     args = ap.parse_args(argv)
+    if args.package:
+        sys.path.insert(0, str(Path(args.package).resolve()))
     if not torch.cuda.is_available():
         print("qconv_probe: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.layer:
+        probe_tier_layer(device)
+        return 0
     libs = _builds(args.against, Path(__file__).resolve().parent / "tensorrtx_tpu_torch" / "_build")
     probe_epilogue(device)
-    if args.against:
+    if args.tier:
+        qe, _, _ = cs._calibrated("bf16", device, cs.SIZE, "entropy", conf_thresh=0.25)
+        cs.phase_qconv_tier(device, cs.fq_main_path_calls(qe, cs.SIZE))
+    elif args.against:
         probe_paths(device, libs)
     return 0
 

@@ -1,5 +1,6 @@
 // Int8-resident conv with a fused requant epilogue for Hopper (sm_90a):
-// 3x3 (stride 1 or 2) and 1x1, int8 NHWC in, int8 NHWC or float out.
+// 3x3 (stride 1 or 2) and 1x1, int8 NHWC in, int8 NHWC or float out; or a
+// bf16 / float32 NHWC input that the conv quantizes itself (below).
 //
 // Replaces the TPU kernels tensorrtx_tpu/ops/pallas/qconv.py::qconv3x3 and
 // ::qconv1x1, and the XLA form of the same contract in
@@ -85,6 +86,23 @@
 // mma steps and epilogue threads on columns past Co = 8, 16 or 32 (see the
 // launchers). Activation and exit are read at run time, so the 3x3 is built
 // once per tile shape.
+//
+// Input rows: pixel p of x lies at x + p * P (the pixel stride, P >= C), so a
+// channel slice of a wider NHWC map is read where it lies, with no copy.
+//
+// A float source, for the 1x1 (the float-resident int8 tier, which quantizes
+// every conv input by x / sx): the kernel takes the bf16 or float32 map and
+// the 0-d scale sx and quantizes it while it stages it, by the division form
+// with no division per element (quant_math.cuh, bit-equal to
+// clip(rint(x / sx), +-127)), which replaces a standalone quantize launch
+// (quantize.cu) and, for a channel slice, the copy in front of it: 16-byte
+// cp.async pieces of the raw slice go into kStages - 1 float slots, and once
+// they have landed the thread that copied them quantizes them into the int8
+// slice, one slice ahead of the mma steps (`quantize_slice`). The 3x3 takes
+// int8 only: its gather reads each pixel once per tap, so a quantize there
+// runs nine times a pixel, and a quantize prologue in the same launch (a grid
+// sync between it and the GEMM) measured level with the standalone quantize
+// launch in front of it (on the H100), which its caller makes instead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,10 +110,34 @@
 
 #include <type_traits>
 
+#include "quant_math.cuh"
+
 namespace {
 
 enum Act { kActNone = 0, kActSilu = 1, kActRelu = 2 };
 enum OutKind { kOutInt8 = 0, kOutF32 = 1, kOutBf16 = 2 };
+enum SrcKind { kSrcInt8 = 0, kSrcBf16 = 1, kSrcF32 = 2 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// How an A element of source type T reaches the int8 operand: an int8
+// source as it is; a float one quantized at the 0-d input scale sx by the
+// division form (quant_math.cuh), bit-equal to clip(rint(x / sx), +-127).
+template <typename T>
+struct AQuant {
+  DivQuant q;
+  __device__ __forceinline__ void init(const float* sx) { q = div_quant(*sx); }
+  __device__ __forceinline__ int8_t operator()(T v) const {
+    return quantize_div_s8(to_float(v), q);
+  }
+};
+
+template <>
+struct AQuant<int8_t> {
+  __device__ __forceinline__ void init(const float*) {}
+  __device__ __forceinline__ int8_t operator()(int8_t v) const { return v; }
+};
 
 // ---------------------------------------------------------------------------
 // the epilogue, shared by both kernels
@@ -166,7 +208,8 @@ constexpr int kStages = 3;         // slices in flight
 
 // How a slice is read: 16-byte cp.async chunks (K % 16 == 0, rows 16-byte
 // aligned), 8-byte ones (K % 8 == 0, rows 8-byte aligned), or byte by byte.
-enum Copy { kCopyBytes = 1, kCopy8 = 8, kCopy16 = 16 };
+// kCopyFloat: a float source's 16-byte pieces through a float slot (the 1x1).
+enum Copy { kCopyBytes = 1, kCopy8 = 8, kCopy16 = 16, kCopyFloat = 32 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -224,15 +267,19 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
 }
 
 // Stages K bytes [k0, k0 + kBK) of ROWS rows into s (row stride kLdS bytes).
-// src(r) points at K byte 0 of row r, or is null for a row of zeros; bytes
-// >= K are zero. With kCopy16 (kCopy8) each 16-byte chunk (8-byte half) is
-// whole or wholly past K and goes by cp.async (kL1: see cp_async16); with
-// kCopyBytes it is read byte by byte. `any` is a valid global address (unread).
-template <int ROWS, int THREADS, bool kL1 = false, typename Src>
-__device__ __forceinline__ void stage_slice(int8_t* s, Src src, const int8_t* any, int k0,
-                                            int K, int copy, int tid) {
+// src(r) points at K element 0 of row r, or is null for a row of zeros;
+// bytes >= K are zero. With kCopy16 (kCopy8) each 16-byte chunk (8-byte half)
+// of an int8 source is whole or wholly past K and goes by cp.async (kL1: see
+// cp_async16); with kCopyBytes it is read element by element (a float
+// source's through `quant`, an AQuant, which quantizes it). `any` is a valid
+// global address (unread). The quantize is kept out of unrolled code: its
+// copies there cost the 1x1's float instances a tenth of their time.
+template <int ROWS, int THREADS, bool kL1 = false, typename Src, typename Q>
+__device__ __forceinline__ void stage_slice(int8_t* s, Src src, const void* any, int k0, int K,
+                                            int copy, int tid, const Q& quant) {
   constexpr int kAll = ROWS * kChunks;
   static_assert(kAll % THREADS == 0 || kAll < THREADS, "whole chunks per thread");
+  using T = std::remove_cv_t<std::remove_pointer_t<decltype(src(0))>>;
 #pragma unroll
   for (int j = 0; j < (kAll + THREADS - 1) / THREADS; ++j) {
     const int i = tid + j * THREADS;
@@ -240,27 +287,112 @@ __device__ __forceinline__ void stage_slice(int8_t* s, Src src, const int8_t* an
     const int r = i / kChunks;
     const int c = k0 + (i % kChunks) * 16;
     int8_t* d = s + r * kLdS + (c - k0);
-    const int8_t* p = src(r);
-    if (copy == kCopy16) {
+    const T* p = src(r);
+    if (sizeof(T) == 1 && copy == kCopy16) {
       const bool in = p != nullptr && c < K;
-      cp_async16<kL1>(d, in ? p + c : any, in ? 16 : 0);
-    } else if (copy == kCopy8) {
+      cp_async16<kL1>(d, in ? static_cast<const void*>(p + c) : any, in ? 16 : 0);
+    } else if (sizeof(T) == 1 && copy == kCopy8) {
 #pragma unroll
       for (int h = 0; h < 16; h += 8) {
         const bool in = p != nullptr && c + h < K;
-        cp_async8(d + h, in ? p + c + h : any, in ? 8 : 0);
+        cp_async8(d + h, in ? static_cast<const void*>(p + c + h) : any, in ? 8 : 0);
       }
+    } else if (sizeof(T) > 1) {  // a float source's odd layouts: a rolled loop keeps it small
+#pragma unroll 1
+      for (int b = 0; b < 16; ++b) d[b] = p != nullptr && c + b < K ? quant(p[c + b]) : 0;
     } else {
       uint32_t v[4] = {0, 0, 0, 0};
       if (p != nullptr) {
 #pragma unroll
         for (int b = 0; b < 16; ++b) {
-          if (c + b < K)
-            v[b / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(p[c + b])) << (8 * (b % 4));
+          if (c + b < K) {
+            const uint32_t q = static_cast<uint8_t>(quant(p[c + b]));
+            v[b / 4] |= q << (8 * (b % 4));
+          }
         }
       }
       *reinterpret_cast<uint4*>(d) = make_uint4(v[0], v[1], v[2], v[3]);
     }
+  }
+}
+
+// A float source's A slice goes through shared memory twice (the 1x1):
+// stage_float_slice copies the raw values by 16-byte cp.async
+// into a float slot, kBK elements a row, and once they have landed the thread
+// that copied them quantizes them into the int8 slice (`quantize_chunk`), so
+// that the ldmatrix/mma steps read int8 as for an int8 source. A 16-byte
+// piece holds kPiece elements (8 bf16, 4 float32).
+template <typename T>
+constexpr int kPiece = 16 / static_cast<int>(sizeof(T));
+
+// Stages K elements [k0, k0 + kBK) of ROWS rows of a float source into f
+// (row stride kBK elements), each chunk of 16 elements by 16-byte pieces that
+// are whole or wholly past K (K % kPiece == 0; rows 16-byte aligned); the
+// chunks are stage_slice's, thread by thread.
+template <int ROWS, int THREADS, typename T, typename Src>
+__device__ __forceinline__ void stage_float_slice(T* f, Src src, const T* any, int k0, int K,
+                                                  int tid) {
+  constexpr int kAll = ROWS * kChunks;
+#pragma unroll
+  for (int j = 0; j < (kAll + THREADS - 1) / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    if (kAll < THREADS && i >= kAll) break;
+    const int r = i / kChunks;
+    const int c = k0 + (i % kChunks) * 16;
+    T* d = f + r * kBK + (c - k0);
+    const T* p = src(r);
+#pragma unroll
+    for (int e = 0; e < 16; e += kPiece<T>) {
+      const bool in = p != nullptr && c + e < K;
+      cp_async16(d + e, in ? p + c + e : any, in ? 16 : 0);
+    }
+  }
+}
+
+// 16 staged float elements at src (shared) into 16 int8 at dst (shared),
+// 16 bytes of src at a time: the guesses, packed as they come, and, if one
+// lies near a half-integer, each byte again by the exact path (a rolled
+// loop, read again from src). Few values live at once: the 1x1 runs this
+// beside its tile's sums.
+template <typename T>
+__device__ __forceinline__ void quantize_chunk(int8_t* dst, const T* src, const AQuant<T>& quant) {
+  static_assert(sizeof(T) > 1, "a float source");
+  constexpr int E = kPiece<T>;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  uint32_t w[4];
+  bool near = false;
+#pragma unroll
+  for (int l = 0; l < 16 / E; ++l) {
+    const uint4 raw = s4[l];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int g = 0; g < E / 4; ++g) {
+      const float x[4] = {to_float(e[4 * g]), to_float(e[4 * g + 1]), to_float(e[4 * g + 2]),
+                          to_float(e[4 * g + 3])};
+      uint32_t b[4];
+      near |= quantize_div_guesses(x, quant.q, b);
+      w[l * E / 4 + g] = pack_low_bytes(b[0], b[1], b[2], b[3]);
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  if (__builtin_expect(near, 0)) {
+#pragma unroll 1
+    for (int k = 0; k < 16; ++k) dst[k] = quantize_div_s8(to_float(src[k]), quant.q);
+  }
+}
+
+// The chunks of ROWS rows that stage_float_slice gave this thread, from the
+// float slot f into the int8 slice a (row stride kLdS bytes).
+template <int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void quantize_slice(int8_t* a, const T* f, int tid,
+                                               const AQuant<T>& quant) {
+  constexpr int kAll = ROWS * kChunks;
+#pragma unroll
+  for (int j = 0; j < (kAll + THREADS - 1) / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    if (kAll < THREADS && i >= kAll) break;
+    const int r = i / kChunks, c = (i % kChunks) * 16;
+    quantize_chunk(a + r * kLdS + c, f + r * kBK + c, quant);
   }
 }
 
@@ -313,6 +445,11 @@ struct Tile {
   static constexpr int BM = WARPS_M * 16 * MI, BN = WARPS_N * 8 * NI;
   static constexpr int kThreads = WARPS_M * WARPS_N * 32;
   static constexpr int kSmem = kStages * (BM + BN) * kLdS + BM * (BN + 8) * 4;
+  // a float source adds its A slots: kStages - 1 of them (the 1x1)
+  template <typename T>
+  static constexpr int smem() {
+    return kSmem + (sizeof(T) == 1 ? 0 : (kStages - 1) * BM * kBK * static_cast<int>(sizeof(T)));
+  }
   static long long items(int M, int Co) {
     return static_cast<long long>((M + BM - 1) / BM) * ((Co + BN - 1) / BN);
   }
@@ -409,18 +546,27 @@ __device__ __forceinline__ void tile_epilogue(const Epilogue& ep, const int* Cs,
 
 // Work item i is the output tile (M tile i / N tiles, N tile i % N tiles);
 // block b takes items b, b + G, b + 2G, ... (G blocks), its K slices one
-// stream across them.
-template <int WARPS_M, int WARPS_N, int kMI, int kNI, int ACT>
+// stream across them. Row m of A is x + m * P (P: the pixel stride, >= C).
+// T: the source's element type. A float source's A slices are staged by
+// cp.async into a ring of kStages - 1 float slots (copy_a == kCopyFloat): once a
+// slice has landed, each thread quantizes the chunks it copied into the int8
+// slice, one slice ahead of the mma steps, before the barrier that opens the
+// slice to them; a slot is refilled only after that barrier. Otherwise (copy_a ==
+// kCopyBytes) each element is loaded and quantized as it is staged.
+template <int WARPS_M, int WARPS_N, int kMI, int kNI, int ACT, typename T>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 512 / (WARPS_M * WARPS_N * 32))
-qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
+qconv1x1_mma_kernel(const T* __restrict__ x,       // (M, P): C channels a pixel
                     const int8_t* __restrict__ w,  // (Co, C)
-                    Epilogue ep, int M, int C, int copy) {
-  using T = Tile<WARPS_M, WARPS_N, kMI, kNI>;
-  constexpr int BM = T::BM, BN = T::BN, kThreads = T::kThreads;
+                    Epilogue ep, int M, int C, int P, int copy_a, int copy_b,
+                    const float* __restrict__ sx) {
+  using Tl = Tile<WARPS_M, WARPS_N, kMI, kNI>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, kThreads = Tl::kThreads;
   constexpr int kSlice = (BM + BN) * kLdS;  // bytes of one staged slice
   constexpr int kLdC = BN + 8;              // int32 row of Cs: 8-byte stores spread
+  constexpr bool kFloat = sizeof(T) > 1;
   extern __shared__ __align__(128) int8_t smem[];
   int* Cs = reinterpret_cast<int*>(smem + kStages * kSlice);  // BM x kLdC sums
+  T* fring = reinterpret_cast<T*>(smem + kStages * kSlice + BM * kLdC * 4);
 
   const int Co = ep.Co;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -431,19 +577,28 @@ qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
   const int nk = (C + kBK - 1) / kBK;
   const int bid = blockIdx.x;
   const int total = bid < items ? ((items - 1 - bid) / G + 1) * nk : 0;
+  const bool fvec = kFloat && copy_a == kCopyFloat;
+  AQuant<T> aq;
+  aq.init(sx);
+  const AQuant<int8_t> none{};
 
   auto stage = [&](int s) {  // slice s of this block's stream
     const int item = bid + (s / nk) * G, kt = s % nk;
     const int m0 = (item / n_tiles) * BM, n0 = (item % n_tiles) * BN;
-    auto a_row = [&](int r) -> const int8_t* {
-      return m0 + r < M ? x + static_cast<size_t>(m0 + r) * C : nullptr;
+    auto a_row = [&](int r) -> const T* {
+      return m0 + r < M ? x + static_cast<size_t>(m0 + r) * P : nullptr;
     };
     auto b_row = [&](int r) -> const int8_t* {
       return n0 + r < Co ? w + static_cast<size_t>(n0 + r) * C : nullptr;
     };
     int8_t* d = smem + (s % kStages) * kSlice;
-    stage_slice<BM, kThreads>(d, a_row, x, kt * kBK, C, copy, tid);
-    stage_slice<BN, kThreads>(d + BM * kLdS, b_row, w, kt * kBK, C, copy, tid);
+    if (fvec) {
+      stage_float_slice<BM, kThreads>(fring + (s % (kStages - 1)) * BM * kBK, a_row, x,
+                                      kt * kBK, C, tid);
+    } else {
+      stage_slice<BM, kThreads>(d, a_row, x, kt * kBK, C, copy_a, tid, aq);
+    }
+    stage_slice<BN, kThreads>(d + BM * kLdS, b_row, w, kt * kBK, C, copy_b, tid, none);
   };
 
   const float so = ep.out_kind == kOutInt8 ? *ep.s_out : 1.0f;
@@ -457,17 +612,29 @@ qconv1x1_mma_kernel(const int8_t* __restrict__ x,  // (M, C)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
 
+  // A float slice is quantized one slice ahead: slice s + 1 after slice
+  // s + 2 is issued and before slice s's mma steps, so the barrier that
+  // opens slice s + 1 also covers its int8 A
+  auto convert = [&](int s) {
+    cp_async_wait<kStages - 2>();  // slice s has landed (this thread's copies)
+    if constexpr (kFloat)
+      quantize_slice<BM, kThreads>(smem + (s % kStages) * kSlice,
+                                   fring + (s % (kStages - 1)) * BM * kBK, tid, aq);
+  };
+
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total) stage(s);
     cp_async_commit();
   }
+  if (fvec && total > 0) convert(0);
   int kt = 0, item = bid;
   for (int s = 0; s < total; ++s) {
-    cp_async_wait<kStages - 2>();  // slice s has landed (this thread's copies)
+    if (!fvec) cp_async_wait<kStages - 2>();  // slice s has landed (this thread's copies)
     __syncthreads();               // ... and everyone's; slice s - 1 and Cs are consumed
     if (s + kStages - 1 < total) stage(s + kStages - 1);
     cp_async_commit();
+    if (fvec && s + 1 < total) convert(s + 1);
     const int8_t* d = smem + (s % kStages) * kSlice;
     const int8_t* a = d + wm * 16 * kMI * kLdS;
     const int8_t* b = d + (BM + wn * 8 * kNI) * kLdS;
@@ -511,9 +678,11 @@ __device__ __forceinline__ int quot(int n, const FastDiv& f) {
   return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<uint32_t>(n), f.mul) >> f.shr);
 }
 
-// The shape of a 3x3 launch, with the divisors the kernel divides by.
+// The shape of a 3x3 launch, with the divisors the kernel divides by. P: the
+// pixel stride of x in elements (>= C). copy: how the A rows and the
+// weights are staged.
 struct Geom3x3 {
-  int H, W, C, stride, M, copy;
+  int H, W, C, P, stride, M, copy;
   FastDiv Wo, Ho, C_div, n_tiles;
 };
 
@@ -532,7 +701,7 @@ __device__ __forceinline__ TapRow tap_row(const Geom3x3& g, int m) {
   TapRow r;
   r.iy = m < g.M ? oy * g.stride - 1 : -4;
   r.ix = ox * g.stride - 1;
-  r.off = ((static_cast<long long>(b) * g.H + r.iy) * g.W + r.ix) * g.C;
+  r.off = ((static_cast<long long>(b) * g.H + r.iy) * g.W + r.ix) * g.P;
   return r;
 }
 
@@ -559,7 +728,7 @@ __device__ __forceinline__ void stage_taps(int8_t* d, int ld, const int8_t* x,
       ++t;
     }
     const int ky = t / 3, kx = t - 3 * ky;
-    const long long off = static_cast<long long>(ky * g.W + kx) * g.C + cc;
+    const long long off = static_cast<long long>(ky * g.W + kx) * g.P + cc;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const bool in = t < 9 && tap_in(g, rows[j], ky, kx);
@@ -597,7 +766,7 @@ __device__ __forceinline__ void stage_bytes(int8_t* d, Src src, int lane) {
 // tile, when the stream of staged slices reaches the tile.
 template <int WARPS_M, int WARPS_N, int kMI, int kNI>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 512 / (WARPS_M * WARPS_N * 32))
-qconv3x3_mma_kernel(const int8_t* __restrict__ x,  // (B, H, W, C)
+qconv3x3_mma_kernel(const int8_t* __restrict__ x,  // (B, H, W, P)
                     const int8_t* __restrict__ w,  // (Co, 3, 3, C): (Co, 9C)
                     Epilogue ep, Geom3x3 g) {
   using T = Tile<WARPS_M, WARPS_N, kMI, kNI>;
@@ -648,7 +817,8 @@ qconv3x3_mma_kernel(const int8_t* __restrict__ x,  // (B, H, W, C)
       auto b_row = [&](int r) -> const int8_t* {
         return n0 + r < Co ? w + static_cast<size_t>(n0 + r) * K : nullptr;
       };
-      stage_slice<BN, kThreads, true>(d + BM * kLdS, b_row, w, k0, K, g.copy, tid);
+      stage_slice<BN, kThreads, true>(d + BM * kLdS, b_row, w, k0, K, g.copy, tid,
+                                      AQuant<int8_t>{});
       for (c += kBK; c >= C; c -= C) ++tap;
     } else {
 #pragma unroll
@@ -656,7 +826,7 @@ qconv3x3_mma_kernel(const int8_t* __restrict__ x,  // (B, H, W, C)
         if (h > 0 && k0 + h >= K) break;  // the mma step past K is skipped: unread
         const int k = k0 + h + lane;
         const int t = quot(k, g.C_div), ky = t / 3, kx = t - 3 * ky;
-        const long long off = static_cast<long long>(ky * g.W + kx) * C + (k - t * C);
+        const long long off = static_cast<long long>(ky * g.W + kx) * g.P + (k - t * C);
         const bool k_in = k < K;
         const int ra = warp * (BM / kWarps), rb = warp * (BN / kWarps);
         stage_bytes<BM / kWarps>(d + ra * kLdS + h, [&](int i) -> const int8_t* {
@@ -787,16 +957,19 @@ using SmallTile = Tile<2, 2, 1, 2>;
 
 bool small_tiles(int M, int Co) { return BigTile::items(M, Co) < sm_count(); }
 
-template <int ACT>
-int launch_1x1(const int8_t* x, const int8_t* w, const Epilogue& ep, int M, int C, int copy,
-               cudaStream_t stream) {
+// The 1x1 of source type T, built per activation. A float source (the int8
+// tier) runs with no activation only: the tier applies its own in torch.
+template <int ACT, typename T>
+int launch_1x1(const T* x, const int8_t* w, const Epilogue& ep, int M, int C, int P, int copy_a,
+               int copy_b, const float* sx, cudaStream_t stream) {
   static int resident[2][kMaxDevices];  // small, big tile
   if (small_tiles(M, ep.Co))
-    return launch_wave(qconv1x1_mma_kernel<2, 2, 1, 2, ACT>, resident[0], SmallTile::kThreads,
-                       SmallTile::kSmem, SmallTile::items(M, ep.Co), stream, x, w, ep, M, C,
-                       copy);
-  return launch_wave(qconv1x1_mma_kernel<4, 2, 2, 4, ACT>, resident[1], BigTile::kThreads,
-                     BigTile::kSmem, BigTile::items(M, ep.Co), stream, x, w, ep, M, C, copy);
+    return launch_wave(qconv1x1_mma_kernel<2, 2, 1, 2, ACT, T>, resident[0], SmallTile::kThreads,
+                       SmallTile::smem<T>(), SmallTile::items(M, ep.Co), stream, x, w, ep, M, C,
+                       P, copy_a, copy_b, sx);
+  return launch_wave(qconv1x1_mma_kernel<4, 2, 2, 4, ACT, T>, resident[1], BigTile::kThreads,
+                     BigTile::smem<T>(), BigTile::items(M, ep.Co), stream, x, w, ep, M, C, P,
+                     copy_a, copy_b, sx);
 }
 
 // Launches the 3x3 kernel on tile T; `resident` is T's record.
@@ -818,49 +991,72 @@ int launch_3x3(const int8_t* x, const int8_t* w, const Epilogue& ep, const Geom3
   return launch_3x3_on<4, 2, 2, 4>(x, w, ep, g, resident[3], stream);
 }
 
+bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError(); the caller
-// allocates `out` and checks the code. out_kind: 0 int8, 1 float32,
-// 2 bfloat16. act: 0 none, 1 SiLU, 2 ReLU. bias and res may be null; s_out
-// and res_scale point at one float on the device. vec == 0 sends the
-// operands through the byte-wise path. For the 1x1, vec != 0 promises that
-// C % 16 == 0 and that x and w are 16-byte aligned; for the 3x3 it allows
-// the 16- or 8-byte copies that C and the alignment of x and w admit.
+// allocates `out` and checks the code. x: (B, H, W) pixels of C channels,
+// pixel p at x + p * pixel_stride elements (pixel_stride >= C: a channel
+// slice of a wider NHWC map is read where it lies). out_kind: 0 int8,
+// 1 float32, 2 bfloat16. act: 0 none, 1 SiLU, 2 ReLU. bias and res may be
+// null; s_out and res_scale point at one float on the device. The copies
+// (16-byte, 8-byte, or element by element) follow from C, the pixel stride
+// and the alignment of x and w.
 extern "C" int qconv3x3_launch(const int8_t* x, const int8_t* w, const float* scale,
-                               const float* bias, const float* s_out,
-                               const int8_t* res, const float* res_scale, void* out,
-                               int out_kind, int act, int B, int H, int W, int C,
-                               int Co, int stride, int vec, void* stream) {
+                               const float* bias, const float* s_out, const int8_t* res,
+                               const float* res_scale, void* out, int pixel_stride,
+                               int out_kind, int act, int B, int H, int W, int C, int Co,
+                               int stride, void* stream) {
   if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int Ho = (H - 1) / stride + 1;
   const int Wo = (W - 1) / stride + 1;
   const int M = B * Ho * Wo;
   if (M <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
-  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int P = pixel_stride;
+  if (C <= 0 || P < C) return static_cast<int>(cudaErrorInvalidValue);
   int copy = kCopyBytes;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
-  if (vec != 0 && C % 16 == 0 && align % 16 == 0) {
+  if (C % 16 == 0 && P % 16 == 0 && aligned(x, 16) && aligned(w, 16)) {
     copy = kCopy16;
-  } else if (vec != 0 && C % 8 == 0 && align % 8 == 0) {
+  } else if (C % 8 == 0 && P % 8 == 0 && aligned(x, 8) && aligned(w, 8)) {
     copy = kCopy8;
   }
   const Epilogue ep = Epilogue{scale, bias, s_out, res, res_scale, out, out_kind, act, Co};
-  const Geom3x3 g{H, W, C, stride, M, copy, fast_div(Wo), fast_div(Ho), fast_div(C), {}};
+  const Geom3x3 g{H, W, C, P, stride, M, copy, fast_div(Wo), fast_div(Ho), fast_div(C), {}};
   return launch_3x3(x, w, ep, g, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int qconv1x1_launch(const int8_t* x, const int8_t* w, const float* scale,
-                               const float* bias, const float* s_out,
+// The 1x1 also takes a float source: src_kind 0 int8, 1 bfloat16, 2 float32.
+// A float source is quantized in the kernel while it stages each slice, by
+// the division form at the 0-d scale sx (read for a float source only),
+// bit-equal to clip(rint(x / sx), +-127); it runs with act 0 only.
+extern "C" int qconv1x1_launch(const void* x, const float* sx, const int8_t* w,
+                               const float* scale, const float* bias, const float* s_out,
                                const int8_t* res, const float* res_scale, void* out,
-                               int out_kind, int act, int B, int H, int W, int C,
-                               int Co, int vec, void* stream) {
+                               int src_kind, int pixel_stride, int out_kind, int act, int B,
+                               int H, int W, int C, int Co, void* stream) {
   const int M = B * H * W;
   if (M <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
+  const int P = pixel_stride;
+  if (C <= 0 || P < C) return static_cast<int>(cudaErrorInvalidValue);
   const Epilogue ep = Epilogue{scale, bias, s_out, res, res_scale, out, out_kind, act, Co};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int copy = vec != 0 ? kCopy16 : kCopyBytes;
-  if (act == kActSilu) return launch_1x1<kActSilu>(x, w, ep, M, C, copy, st);
-  if (act == kActRelu) return launch_1x1<kActRelu>(x, w, ep, M, C, copy, st);
-  return launch_1x1<kActNone>(x, w, ep, M, C, copy, st);
+  const bool b16 = C % 16 == 0 && aligned(w, 16);
+  if (src_kind == kSrcInt8) {
+    const int copy = b16 && P % 16 == 0 && aligned(x, 16) ? kCopy16 : kCopyBytes;
+    const int8_t* xi = static_cast<const int8_t*>(x);
+    if (act == kActSilu) return launch_1x1<kActSilu>(xi, w, ep, M, C, P, copy, copy, nullptr, st);
+    if (act == kActRelu) return launch_1x1<kActRelu>(xi, w, ep, M, C, P, copy, copy, nullptr, st);
+    return launch_1x1<kActNone>(xi, w, ep, M, C, P, copy, copy, nullptr, st);
+  }
+  // a float source: E elements a 16-byte piece
+  const int E = src_kind == kSrcBf16 ? 8 : src_kind == kSrcF32 ? 4 : 0;
+  if (E == 0 || act != kActNone) return static_cast<int>(cudaErrorInvalidValue);
+  const int copy_a = C % E == 0 && P % E == 0 && aligned(x, 16) ? kCopyFloat : kCopyBytes;
+  const int copy_b = b16 ? kCopy16 : kCopyBytes;
+  if (src_kind == kSrcBf16)
+    return launch_1x1<kActNone>(static_cast<const __nv_bfloat16*>(x), w, ep, M, C, P, copy_a,
+                                copy_b, sx, st);
+  return launch_1x1<kActNone>(static_cast<const float*>(x), w, ep, M, C, P, copy_a, copy_b, sx,
+                              st);
 }

@@ -19,12 +19,15 @@
 // up to the next integer (127 + (1 - 2^-24) rounds to 128): q stays within
 // [floor(v), ceil(v)], so |q - v| < 1 and |q| <= 127.
 //
-// Bit-exactness: 1/s is one correctly rounded quotient, x * (1/s) and x / s
-// are rounded once each (__fdiv_rn, __fmul_rn, and -fmad=false at build),
-// and rintf rounds half to even as jnp.round and torch.round do, so both
-// forms equal the plain versions bit for bit. The two forms themselves can
-// differ where x / s lies within an ulp of a half-integer; each is held to
-// its own source.
+// Bit-exactness: 1/s is one correctly rounded quotient, x * (1/s) is rounded
+// once (__fmul_rn, and -fmad=false at build), and rintf rounds half to even
+// as jnp.round and torch.round do. The div form takes no division per
+// element: `quantize_div_bits` (quant_math.cuh, shared with the int8 1x1
+// that quantizes while it stages) multiplies by 1/s and decides the values
+// within 2^-13 of a half-integer by an exact FMA residual, which makes it
+// x / s rounded once. So both forms equal the plain versions bit for bit. The two forms themselves can differ
+// where x / s lies within an ulp of a half-integer; each is held to its own
+// source.
 //
 // Random bits: Philox4x32-10 (Salmon et al., SC'11), counter-based. The key
 // is the 64-bit seed, the counter the element index / 4, and element i takes
@@ -39,11 +42,15 @@
 // 16 bytes of input with one vector load (4 float32 or 8 bf16) and stores
 // its int8 results with one 4- or 8-byte store; the stochastic form takes
 // four elements per thread, one Philox call. A pointer that is not 16-byte
-// aligned (or a ragged tail) takes the element-wise path.
+// aligned (or a ragged tail) takes the element-wise path. The deterministic
+// form also reads a channel slice of an NHWC map where it lies (rows of C
+// elements P apart; the int8 tier's 3x3 inputs), its output contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quant_math.cuh"
 
 namespace {
 
@@ -55,38 +62,87 @@ enum Kind { kF32 = 0, kBf16 = 1 };
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ uint32_t q_nearest(float x, float s, float inv, int div) {
-  const float v = div ? __fdiv_rn(x, s) : __fmul_rn(x, inv);
-  const float q = fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+// The recip form: x * (1/s) rounded once, half to even, clipped.
+__device__ __forceinline__ uint32_t q_recip(float x, float inv) {
+  const float q = fminf(fmaxf(rintf(__fmul_rn(x, inv)), -127.0f), 127.0f);
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
 }
 
+// q of element x in the low byte: the division form through the shared
+// division-free function (quant_math.cuh), else the recip form.
+__device__ __forceinline__ uint32_t q_nearest(float x, const DivQuant& dq, float inv, int div) {
+  return div ? quantize_div_bits(x, dq) & 0xffu : q_recip(x, inv);
+}
+
+// The V = 16 / sizeof(T) elements of one 16-byte load u (from src) into
+// out: the guesses, stored as one 4- or 8-byte word, and, if one of them
+// lies near a half-integer, each byte again by the exact path, out of the
+// unrolled code (read again from src).
+template <typename T>
+__device__ __forceinline__ void quantize_piece(const uint4& u, const T* src, int8_t* out,
+                                               const DivQuant& dq, float inv, int div) {
+  constexpr int V = 16 / sizeof(T);
+  const T* e = reinterpret_cast<const T*>(&u);
+  uint32_t b[V], w[V / 4];
+  bool near = false;
+  if (div) {
+    float xs[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) xs[k] = to_f(e[k]);
+    near = quantize_div_guesses(xs, dq, b);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) b[k] = q_recip(to_f(e[k]), inv);
+  }
+#pragma unroll
+  for (int k = 0; k < V / 4; ++k)
+    w[k] = pack_low_bytes(b[4 * k], b[4 * k + 1], b[4 * k + 2], b[4 * k + 3]);
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint32_t*>(out) = w[0];
+  } else {
+    *reinterpret_cast<uint2*>(out) = make_uint2(w[0], w[V / 4 - 1]);
+  }
+  if (near) {
+#pragma unroll 1
+    for (int k = 0; k < V; ++k) out[k] = quantize_div_s8(to_f(src[k]), dq);
+  }
+}
+
+// n elements in rows of C, row r at x + r * P (P == C: the flat array),
+// into the contiguous out. With vec (x and out 16-byte aligned, and C and P
+// whole loads) a thread takes one 16-byte load at a time; else an element.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const T* __restrict__ x, const float* __restrict__ s_ptr,
-                int8_t* __restrict__ out, long long n, int div, int vec) {
+                int8_t* __restrict__ out, long long n, long long C, long long P, int div,
+                int vec) {
   constexpr int V = 16 / sizeof(T);   // elements per 16-byte load
   const float s = *s_ptr;
+  const DivQuant dq = div_quant(s);
   const float inv = __fdiv_rn(1.0f, s);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (P != C) {  // a channel slice: the row of load j (element i) found by division
+    const long long per = vec ? C / V : C, units = vec ? n / V : n;
+    const bool narrow = units < (1ll << 32);  // 32-bit divisions
+    for (long long j = tid; j < units; j += step) {
+      const long long r = narrow ? static_cast<unsigned>(j) / static_cast<unsigned>(per) : j / per;
+      const long long off = r * P + (j - r * per) * (vec ? V : 1);
+      if (vec) {
+        quantize_piece(*reinterpret_cast<const uint4*>(x + off), x + off, out + j * V, dq, inv,
+                       div);
+      } else {
+        out[j] = static_cast<int8_t>(q_nearest(to_f(x[off]), dq, inv, div));
+      }
+    }
+    return;
+  }
   const long long n_vec = vec ? n / V : 0;
   for (long long i = tid; i < n_vec; i += step) {
-    const uint4 u = reinterpret_cast<const uint4*>(x)[i];
-    const T* e = reinterpret_cast<const T*>(&u);
-    uint32_t w[V / 4];
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) w[k] = 0;
-#pragma unroll
-    for (int k = 0; k < V; ++k) w[k / 4] |= q_nearest(to_f(e[k]), s, inv, div) << (8 * (k % 4));
-    if constexpr (V == 4) {
-      reinterpret_cast<uint32_t*>(out)[i] = w[0];
-    } else {
-      reinterpret_cast<uint2*>(out)[i] = make_uint2(w[0], w[V / 4 - 1]);
-    }
+    quantize_piece(reinterpret_cast<const uint4*>(x)[i], x + i * V, out + i * V, dq, inv, div);
   }
   for (long long i = n_vec * V + tid; i < n; i += step) {
-    out[i] = static_cast<int8_t>(q_nearest(to_f(x[i]), s, inv, div));
+    out[i] = static_cast<int8_t>(q_nearest(to_f(x[i]), dq, inv, div));
   }
 }
 
@@ -159,20 +215,29 @@ int blocks_for(long long units) {
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError(); the caller
-// allocates `out` (n int8) and checks the code. kind: 0 float32, 1 bf16.
-// s points at one float on the device. vec != 0 promises that x and out
-// are 16-byte aligned. div != 0 selects x / s, else x * (1/s).
+// allocates `out` (n int8, contiguous) and checks the code. kind: 0
+// float32, 1 bf16. s points at one float on the device. vec != 0 promises
+// that x and out are 16-byte aligned.
+//
+// quantize_int8_launch reads x as rows of C elements (C divides n), row r at
+// x + r * P (P >= C: a channel slice of a wider NHWC map, read where it
+// lies; P == C: contiguous). div != 0 selects x / s, else x * (1/s).
 extern "C" int quantize_int8_launch(const void* x, const float* s, int8_t* out, long long n,
-                                    int kind, int div, int vec, void* stream) {
+                                    long long C, long long P, int kind, int div, int vec,
+                                    void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (C <= 0 || P < C || n % C != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long units = vec ? (kind == kF32 ? n / 4 : n / 8) + 1 : n;
+  const int V = kind == kF32 ? 4 : 8;
+  // a slice takes 16-byte loads only if its rows are whole loads apart
+  const int v = vec && (P == C || (C % V == 0 && P % V == 0));
+  const long long units = v ? n / V + 1 : n;
   if (kind == kF32) {
     quantize_kernel<float><<<blocks_for(units), kThreads, 0, st>>>(
-        static_cast<const float*>(x), s, out, n, div, vec);
+        static_cast<const float*>(x), s, out, n, C, P, div, v);
   } else {
     quantize_kernel<__nv_bfloat16><<<blocks_for(units), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), s, out, n, div, vec);
+        static_cast<const __nv_bfloat16*>(x), s, out, n, C, P, div, v);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded through ``ctypes``. Libraries go to
 ``tensorrtx_tpu_torch/_build/`` (git-ignored) under a name keyed by the
-hash of the source and flags, so an edited source rebuilds. Nothing is
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds. Nothing is
 built at import: the first launch builds its library, or `build` builds
 them all at once, one ``nvcc`` process per source, all started together.
 """
@@ -37,7 +38,8 @@ KERNELS: Dict[str, tuple] = {
     # requant can land on the other side of a rounding edge
     "qconv": ("qconv.cu", ["-fmad=false"]),
     # -fmad=false: x·(1/s) and the stochastic form's products must round
-    # alone, as the plain versions' do
+    # alone, as the plain versions' do (and quant_math.cuh's, in both
+    # libraries)
     "quantize": ("quantize.cu", ["-fmad=false"]),
     "conv_planar": ("conv_planar.cu", []),
 }
@@ -54,6 +56,8 @@ def nvcc_path() -> Optional[str]:
 def _lib_path(name: str) -> Path:
     src, extra = KERNELS[name]
     h = hashlib.sha256((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # what the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -29,7 +29,6 @@ import torch
 
 from tensorrtx_tpu_torch.ops import nn as ops
 from tensorrtx_tpu_torch.ops.cuda import qconv as _qc
-from tensorrtx_tpu_torch.ops.cuda import quantize as _qz
 
 __all__ = ["ConvSlot", "Taps", "abs_histogram", "quant_conv2d"]
 
@@ -76,15 +75,18 @@ def quant_conv2d(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, sx: tor
     """The tier's int8 conv (`nn.py:97-114`) on an NCHW x: quantize x at sx
     by division, int8×int8→int32 conv with OHWI ``wq`` (padding k//2), then
     ``acc·scale + bias`` in float32 (scale = sx·sw), cast to x's dtype.
+    x's NHWC view is read where it lies: a ``channels_last`` map, or a
+    channel slice of one, with its pixel stride (no copy; any other layout
+    raises). The 1×1 kernel quantizes it while it stages it; a 3×3 is
+    given the int8 map that one `quantize_int8` launch makes of it.
     Returns the NCHW view of the kernels' NHWC output (``channels_last``
-    memory, no copy). A channel slice of a ``channels_last`` map is not
-    contiguous in NHWC order; it is copied before the quantize kernel."""
-    xq = _qz.quantize_int8(x.permute(0, 2, 3, 1).contiguous(), sx, divide=True)
-    kw = dict(act=None, out_float=True, out_dtype=x.dtype)
+    memory, no copy)."""
+    kw = dict(act=None, out_float=True, out_dtype=x.dtype, sx=sx)
+    xh = x.permute(0, 2, 3, 1)
     if wq.shape[1] == 3:
-        y = _qc.qconv3x3(xq, wq, scale, bias, None, stride=stride, **kw)
+        y = _qc.qconv3x3(xh, wq, scale, bias, None, stride=stride, **kw)
     else:
-        y = _qc.qconv1x1(xq, wq, scale, bias, None, **kw)
+        y = _qc.qconv1x1(xh, wq, scale, bias, None, **kw)
     return y.permute(0, 3, 1, 2)
 
 

@@ -266,6 +266,132 @@ def test_qconv_kernels_reject_what_they_cannot_take(cuda):
         qk.qconv3x3(xq, wq, scale, bias, 0.02, stride=3)
 
 
+# --- the int8 convs from a float source, quantized in the kernel ------------
+
+def finite_bf16():
+    """Every finite bfloat16 value once (65,280)."""
+    b = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return b[torch.isfinite(b.float())]
+
+
+def nonzero_int8(rng, shape):
+    """Random int8 weights with no zero: every flipped input moves a sum."""
+    w = rng.integers(1, 128, shape) * rng.choice([-1, 1], shape)
+    return torch.from_numpy(w.astype(np.int8))
+
+
+# (k, stride, B, H, W, C, Co, source dtype, pixel stride / C, element offset of x):
+# the vector paths (C % 16, C % 8 with float32 4-element pieces), the element
+# paths (the C = 3 stem; C = 6; an unaligned x), channel slices read where
+# they lie (pixel stride 2C, 3C)
+FUSED_CASES = [
+    (3, 2, 2, 33, 25, 3, 16, torch.bfloat16, 1, 0),
+    (3, 2, 1, 41, 39, 3, 16, torch.float32, 1, 0),
+    (3, 1, 2, 20, 20, 16, 16, torch.bfloat16, 1, 0),
+    (3, 2, 2, 21, 17, 16, 32, torch.bfloat16, 2, 0),
+    (3, 1, 1, 12, 10, 24, 40, torch.float32, 1, 0),
+    (3, 1, 2, 9, 11, 32, 64, torch.bfloat16, 2, 0),
+    (3, 1, 2, 40, 40, 64, 64, torch.float32, 2, 0),
+    (3, 1, 1, 20, 20, 128, 128, torch.bfloat16, 3, 0),
+    (3, 1, 1, 8, 8, 16, 16, torch.bfloat16, 1, 2),
+    (1, 1, 2, 20, 20, 64, 64, torch.bfloat16, 1, 0),
+    (1, 1, 2, 20, 20, 32, 32, torch.bfloat16, 2, 0),
+    (1, 1, 32, 20, 20, 64, 128, torch.float32, 2, 0),
+    (1, 1, 1, 9, 11, 6, 10, torch.bfloat16, 1, 0),
+    (1, 1, 2, 5, 7, 24, 40, torch.float32, 1, 0),
+    (1, 1, 1, 20, 20, 256, 64, torch.bfloat16, 1, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FUSED_CASES, ids=str)
+def test_fused_quantize_gemm_is_exact(cuda, case):
+    """From a float source with a float32 exit, scale 1, no bias and no
+    activation the output is the int32 sum of the staged int8 values:
+    bit-equal to the exact sums of conv(quantize_int8_plain(x, sx, divide),
+    w), with weights that have no zero."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    k, stride, b, h, w, c, co, dtype, ps, offset = case
+    rng = np.random.default_rng(sum(case[2:7]))
+    sx = torch.tensor(0.0371, dtype=torch.float32)
+    x = (torch.from_numpy(rng.normal(0, 50, (b, h, w, c)).astype(np.float32)) * sx).to(dtype)
+    wide = torch.zeros((b, h, w, ps * c + offset), dtype=dtype, device=cuda)
+    xd = wide[..., offset + (ps - 1) * c:offset + ps * c]
+    xd.copy_(x)
+    assert xd.stride(2) == ps * c + offset and (ps * c + offset == c) == xd.is_contiguous()
+    wq = nonzero_int8(rng, (co, k, k, c))
+    ones = torch.ones(co, dtype=torch.float32)
+    fn = qk.qconv3x3 if k == 3 else qk.qconv1x1
+    common = dict(act=None, out_float=True, out_dtype=torch.float32,
+                  **({"stride": stride} if k == 3 else {}))
+    # the 3×3: quantize_int8 of x where it lies, then the int8-source kernel;
+    # the 1×1: one launch that quantizes while it stages
+    counts = lambda: (qz.launches, qk.launches_3x3, qk.launches_1x1, qk.launches_1x1_fq)  # noqa: E731
+    before = counts()
+    got = fn(xd, wq.to(cuda), ones.to(cuda), None, None, sx=sx.to(cuda), **common)
+    torch.cuda.synchronize()
+    added = (1, 1, 0, 0) if k == 3 else (0, 0, 0, 1)
+    assert counts() == tuple(b + a for b, a in zip(before, added))
+    xq = qz.quantize_int8_plain(x, sx, divide=True)
+    exact = qk.qconv_plain(xq, wq, ones, None, None, **common)
+    assert int(exact.abs().max()) < 2 ** 24
+    assert torch.equal(got.cpu(), exact)
+    assert torch.equal(fn(x, wq, ones, None, None, sx=sx, **common), exact)  # the CPU route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.0371, 1.7e-3, 2.0 ** -5, 0.11, 2.0 ** 3, 1e-33])
+def test_fused_quantize_equals_division_for_every_bf16(cuda, scale):
+    """An identity 1×1 (C = Co = 16, scale 1, float32 exit) returns the
+    staged int8 values themselves; with every finite bf16 value as input
+    they equal quantize_int8_plain(x, s, divide=True), and so do those of a
+    center-tap identity 3×3 and of the C = 3 stem's element path, each from
+    a contiguous map and (C = 16) from a channel slice of a map 2C wide. At
+    1e-33 (under 2^-100) every value takes the exact path, scaled."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    x = torch.zeros(64 * 342 * 3, dtype=torch.bfloat16)
+    x[:65280] = finite_bf16()
+    s = torch.tensor(scale, dtype=torch.float32)
+    want = qz.quantize_int8_plain(x, s, divide=True).float()
+    common = dict(act=None, out_float=True, out_dtype=torch.float32, sx=s.to(cuda))
+    for k, shape, ps in ((1, (1, 64, 64, 16), 1), (1, (1, 64, 64, 16), 2),
+                         (3, (1, 64, 64, 16), 1), (3, (1, 64, 64, 16), 2),
+                         (3, (1, 64, 342, 3), 1)):
+        c = shape[3]
+        wq = torch.zeros((c, k, k, c), dtype=torch.int8)
+        wq[torch.arange(c), k // 2, k // 2, torch.arange(c)] = 1
+        fn = qk.qconv3x3 if k == 3 else qk.qconv1x1
+        wide = torch.zeros((*shape[:3], ps * c), dtype=torch.bfloat16, device=cuda)
+        xd = wide[..., (ps - 1) * c:]
+        xd.copy_(x[:int(np.prod(shape))].reshape(shape))
+        got = fn(xd, wq.to(cuda), torch.ones(c, device=cuda), None, None, **common)
+        assert torch.equal(got.cpu().reshape(-1), want[:xd.numel()]), (k, shape, ps)
+
+
+@pytest.mark.gpu
+def test_fused_qconv_refuses_what_it_cannot_take(cuda):
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+
+    x = torch.zeros((1, 8, 8, 32), dtype=torch.bfloat16, device=cuda)
+    wq = torch.zeros((16, 3, 3, 16), dtype=torch.int8, device=cuda)
+    ones = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError):          # fp16: no kernel takes it
+        qk.qconv3x3(x[..., :16].half(), wq, ones, None, None, sx=0.1)
+    with pytest.raises(TypeError):          # int8 source with a scale
+        qk.qconv3x3(x[..., :16].to(torch.int8), wq, ones, None, None, sx=0.1)
+    with pytest.raises(TypeError):          # float source without one
+        qk.qconv3x3(x[..., :16], wq, ones, None, 0.1)
+    with pytest.raises(ValueError):         # a float source takes no activation
+        qk.qconv3x3(x[..., :16], wq, ones, None, None, sx=0.1, act="silu")
+    nchw = torch.zeros((1, 16, 8, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):         # channels not at stride 1: no copy is made
+        qk.qconv3x3(nchw.permute(0, 2, 3, 1), wq, ones, None, None, sx=0.1, act=None)
+
+
 # --- quantize kernels (csrc/quantize.cu) -------------------------------------
 
 @pytest.mark.gpu
@@ -380,11 +506,14 @@ def test_int8_tier_forward_launches_its_kernels(cuda):
     got_scales = calibrate(Engine("yolo11", params, cfg, device=cuda), [x], "percentile")
     np.testing.assert_allclose(got_scales, scales, rtol=1e-5)
     qe = QuantizedEngine(Engine("yolo11", params, cfg, device=cuda), scales)
-    before = (qz.launches, qk.launches_3x3, qk.launches_1x1)
+    counters = ("launches", "launches_3x3", "launches_1x1", "launches_1x1_fq")
+    mods = (qz, qk, qk, qk)
+    before = [getattr(m, n) for m, n in zip(mods, counters)]
     out = qe(x)
     torch.cuda.synchronize()
-    assert (qz.launches - before[0], qk.launches_3x3 - before[1],
-            qk.launches_1x1 - before[2]) == (80, 35, 45)
+    # each 3×3: a quantize of its float input where it lies, then the int8
+    # 3×3; each 1×1 quantizes its own float input in its kernel
+    assert [getattr(m, n) - b for m, n, b in zip(mods, counters, before)] == [35, 35, 0, 45]
     ref = QuantizedEngine(Engine("yolo11", params, cfg, device="cpu"), scales)(x)
     assert float((out["conf"].cpu() - ref["conf"]).abs().max()) <= 1e-4
     assert float((out["boxes"].cpu() - ref["boxes"]).abs().max()) <= 0.05
