@@ -1745,6 +1745,11 @@ def main():
         "name": "nms_mask", "route": "cuda",
         "source": "tensorrtx_tpu_torch/csrc/nms_mask.cu",
         "replaces": "tensorrtx_tpu/ops/pallas/nms_pallas.py:60",
+        "design": "a warp per candidate row, 8 rows a block, the image's candidates and their "
+                  "areas staged once per block in shared memory (opt-in above 48 KB at "
+                  "N = 2048); lane l tests candidate 32t + l at step t, __any_sync, and the "
+                  "warp stops at the first killer: at most ceil(N / 32) dependent steps; "
+                  "the IoU in the Pallas kernel's operation order, each op rounded alone",
         "launches": launches["nms_mask"], "max_abs_err": nms[1]["max_abs_err"],
         "ms": nms[1]["ms"], "plain_ms": nms[1]["plain_ms"],
         "bound_ms": nms[1]["bound_ms"], "bound_by": nms[1]["bound_by"], "library_ms": None,
@@ -1861,12 +1866,20 @@ def main():
         "per": "one launch on 32x160x160x64 float32", "ms_source": sr["ms_source"],
     })
     f32_, bf16 = torch.float32, torch.bfloat16
+    designs = {
+        "conv3x3_planar": "a block of 128 threads per (row, 16 output channels, 128 columns); "
+                          "16 input channels a chunk staged with their halo, a column a thread",
+        "conv1x1_planar": "a block per (run of rows, <= 64 output channels, the row's columns) "
+                          "in one wave; weights staged once, each row and its residual "
+                          "double-buffered by 16-byte cp.async; 4 columns x 8 channels a "
+                          "thread; bf16 two blocks an SM",
+    }
     for name, line in (("conv3x3_planar", 91), ("conv1x1_planar", 178)):
         p1, p32 = planar[(name, 1, f32_)], planar[(name, 32, f32_)]
         h1, h32 = planar[(name, 1, bf16)], planar[(name, 32, bf16)]
         kernels.append({
             "name": name, "route": "cuda", "source": "tensorrtx_tpu_torch/csrc/conv_planar.cu",
-            "replaces": f"tensorrtx_tpu/ops/pallas/conv_planar.py:{line}",
+            "replaces": f"tensorrtx_tpu/ops/pallas/conv_planar.py:{line}", "design": designs[name],
             "launches": standalone[name], "path": "standalone_ops",
             "max_abs_err": max(p1["max_abs_err"], p32["max_abs_err"]),
             "ms": p1["ms"], "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],

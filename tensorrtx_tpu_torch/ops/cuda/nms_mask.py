@@ -28,8 +28,8 @@ __all__ = ["keep_mask", "keep_mask_plain", "launches", "MAX_N"]
 # Launches of the CUDA kernel in this process (not of the plain version).
 launches = 0
 
-# The kernel stages 6 float planes of N candidates in shared memory; 2048
-# keeps them within the 48 KB a block gets without an opt-in.
+# The kernel stages 7 float planes of N candidates in shared memory (57 KB
+# at 2048, with the kernel's opt-in above the 48 KB default).
 MAX_N = 2048
 
 _fn = None

@@ -56,6 +56,45 @@ def test_nms_mask_kernel_bit_equal_to_plain(cuda, b):
     assert torch.equal(keep.cpu(), kern.keep_mask(*host, THRESH))
 
 
+def edge_candidates(seed, b, n, kind):
+    """NMS candidates of one kind: "ties" (every score equal), "invalid"
+    (every slot ≤ 0), "one_class", or "unsorted" (sorted candidates in a
+    random order)."""
+    boxes, scores, classes = candidates(seed, b, n)
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        scores = torch.full_like(scores, 0.5)
+    elif kind == "invalid":
+        scores = -torch.from_numpy(rng.choice(np.float32([0.0, 0.25]), (b, n)))
+    elif kind == "one_class":
+        classes = torch.zeros_like(classes)
+    else:
+        o = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(b)]))
+        boxes = torch.take_along_dim(boxes, o[..., None], 1).contiguous()
+        scores, classes = (torch.take_along_dim(t, o, 1).contiguous() for t in (scores, classes))
+    return boxes, scores, classes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ties", "invalid", "one_class", "unsorted"])
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 300, 2048])
+def test_nms_mask_kernel_bit_equal_at_edges(cuda, n, b, kind):
+    # a warp per row, 32 candidates a step: N around the warp width, the
+    # main path's 300 and MAX_N (the kernel's shared-memory opt-in)
+    host = edge_candidates(1000 * n + b, b, n, kind)
+    args = [t.to(cuda) for t in host]
+    before = kern.launches
+    keep = kern.keep_mask(*args, THRESH)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert torch.equal(keep, kern.keep_mask_plain(*args, THRESH))
+    if kind == "invalid":
+        assert not keep.any()
+    if b * n <= 32 * 300:
+        assert torch.equal(keep.cpu(), kern.keep_mask(*host, THRESH))
+
+
 @pytest.mark.gpu
 def test_nms_mask_kernel_rejects_what_it_cannot_take(cuda):
     boxes, scores, classes = (t.to(cuda) for t in candidates(0, 1))
@@ -470,6 +509,71 @@ def test_planar_conv_kernels_match_plain(cuda, case, dtype):
     for want in (ref.cpu(), host):
         assert got.shape == want.shape and got.dtype == dtype
         assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+
+
+# (B, H, C, W, Co) of the 1×1 at its edges
+PLANAR_1X1_EDGES = [
+    (1, 7, 17, 33, 72),       # ragged rows (W·itemsize % 16 ≠ 0), two Co tiles
+    (2, 5, 1, 130, 96),       # one input channel, ragged rows, two Co tiles
+    (1, 4801, 17, 300, 3),    # B·H prime and over one wave: runs of R rows, a short last one
+    (1, 3, 48, 640, 64),      # 3 (float32) or 4 (bf16) column tiles; 2 channel stages a row in float32
+    (2, 3, 200, 96, 24),      # 3 (float32) or 2 (bf16) channel stages a row
+]
+
+
+def planar_1x1_inputs(case, act, res, dtype):
+    b, h, c, w, co = case
+    gen = torch.Generator().manual_seed(sum(case) + 7 * len(str(act)) + res)
+    x = torch.randn((b, h, c, w), generator=gen).to(dtype)
+    wt = torch.randn((c, co), generator=gen) / c ** 0.5
+    bias = torch.randn((co,), generator=gen) * 0.1
+    r = torch.randn((b, h, co, w), generator=gen).to(dtype) if res else None
+    return x, wt, bias, r
+
+
+def check_1x1(cuda, x, wt, bias, r, act, dtype):
+    from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
+
+    torch.backends.cudnn.allow_tf32 = False
+    before = cp.launches_1x1
+    got = cp.conv1x1_planar(x, wt, bias, residual=r, act=act)
+    torch.cuda.synchronize()
+    assert cp.launches_1x1 == before + 1
+    ref = cp.conv_planar_plain(x, wt, bias, r, act, 1)
+    tol = (1e-4 if dtype == torch.float32 else 2 ** -7) * (1 + float(ref.float().abs().max()))
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("act", ["silu", "relu", None])
+@pytest.mark.parametrize("case", PLANAR_1X1_EDGES, ids=str)
+def test_conv1x1_planar_kernel_matches_plain_at_edges(cuda, case, act, res, dtype):
+    x, wt, bias, r = planar_1x1_inputs(case, act, res, dtype)
+    check_1x1(cuda, x.to(cuda), wt.to(cuda), bias.to(cuda),
+              None if r is None else r.to(cuda), act, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1x1_planar_kernel_takes_unaligned_rows(cuda, dtype):
+    # contiguous views 4 bytes past an allocation: rows of 16-byte multiples
+    # that cannot be read by 16-byte pieces, and an output pointer that
+    # takes vector stores beside a residual that does not
+    x, wt, bias, r = planar_1x1_inputs((2, 9, 48, 160, 64), "silu", True, dtype)
+
+    def shifted(t):
+        k = 4 // t.element_size()
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=cuda)
+        v = buf[k:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    check_1x1(cuda, shifted(x), wt.to(cuda), bias.to(cuda), shifted(r), "silu", dtype)
+    check_1x1(cuda, shifted(x), wt.to(cuda), None, None, None, dtype)
 
 
 @pytest.mark.gpu

@@ -47,9 +47,19 @@ def adversarial_candidates(seed, b=4, n=N, nc=3, n_invalid=40):
     return boxes, scores, classes
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_keep_mask_bit_equal_to_jax_and_pallas(seed):
-    boxes, scores, classes = adversarial_candidates(seed)
+@pytest.mark.parametrize("seed,n,n_invalid,equal", [
+    pytest.param(0, N, 40, False, id="0"),
+    pytest.param(1, N, 40, False, id="1"),
+    # around the CUDA kernel's 32-candidate warp steps: one past a step, one
+    # past eight, with every valid score equal (priority by index alone)
+    pytest.param(2, 33, 5, False, id="n33"),
+    pytest.param(3, 257, 30, False, id="n257"),
+    pytest.param(4, 257, 30, True, id="n257-equal"),
+])
+def test_keep_mask_bit_equal_to_jax_and_pallas(seed, n, n_invalid, equal):
+    boxes, scores, classes = adversarial_candidates(seed, n=n, n_invalid=n_invalid)
+    if equal:
+        scores[scores > 0] = 0.5
     got = kern.keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores),
                          torch.from_numpy(classes), THRESH).numpy()
     assert got.dtype == np.bool_ and got.shape == scores.shape

@@ -142,12 +142,19 @@ def test_quantize_int8_stochastic_properties():
 PLANAR = ([(3, act, res) for act, res in (("silu", False), ("relu", True), (None, False),
                                             ("silu", True))]
           + [(1, act, res) for act in ("silu", "relu", None) for res in (False, True)])
+# (B, C, Co, H, W) of 1x1 cases at the CUDA kernel's edges: W = 33 (rows not
+# 16-byte multiples), Co = 72 (two channel tiles), C = 1
+PLANAR_1X1_EDGES = [(1, 17, 72, 8, 33), (2, 1, 24, 8, 33), (1, 3, 72, 8, 40)]
 
 
-@pytest.mark.parametrize("k,act,res", PLANAR, ids=str)
-def test_planar_conv_plain_matches_pallas_kernel(k, act, res):
+@pytest.mark.parametrize("k,act,res,shape", [
+    *(pytest.param(*p, None, id="-".join(map(str, p))) for p in PLANAR),
+    *(pytest.param(1, act, res, sh, id=f"1-{act}-{res}-{'x'.join(map(str, sh))}")
+      for sh, (act, res) in zip(PLANAR_1X1_EDGES, (("silu", True), ("relu", False), (None, True)))),
+])
+def test_planar_conv_plain_matches_pallas_kernel(k, act, res, shape):
     rng = np.random.default_rng(10 * k + len(str(act)) + res)
-    b, c, co, h, w = (2, 8, 16, 16, 16) if k == 3 else (2, 16, 8, 16, 16)
+    b, c, co, h, w = shape or ((2, 8, 16, 16, 16) if k == 3 else (2, 16, 8, 16, 16))
     x = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
     wt = rng.normal(0, 0.1, (k, k, c, co)).astype(np.float32)
     bias = rng.normal(0, 0.1, (co,)).astype(np.float32)
