@@ -202,17 +202,27 @@ def phase_env():
     return smi
 
 
-def _device_profile(fn, iters=20, top=8):
+def gpu_clocks():
+    """The card's SM and memory clocks now, as `nvidia-smi` reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _device_profile(fn, iters=20, top=8, expect=None):
     """Device time per call of fn — the sum of the CUDA kernels' and
     copies' own time that torch.profiler records over `iters` warm calls —
     the `top` device items by time ([name, ms per call, launches per
     call]), and the time's source, "profiler".
 
     The profiler's CUDA activity tracing now and then records nothing in a
-    window. After three such windows the time is the median of CUDA-event
-    times around each call instead, which count the gaps between launches
-    too: the source is then "cuda_events", there are no items, and every
-    number built on it carries that source into the log."""
+    window, and late in a long process it can drop some of a window's
+    kernels. With `expect` = (a part of a kernel's name, its launches per
+    call), a window counts only if it recorded every one of those
+    launches. After three windows that do not count, the time is the
+    median of CUDA-event times around each call instead, which count the
+    gaps between launches too: the source is then "cuda_events", there are
+    no items, and every number built on it carries that source into the
+    log."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -225,6 +235,8 @@ def _device_profile(fn, iters=20, top=8):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         us = sum(e.self_device_time_total for e in events)
+        if expect is not None and sum(e.count for e in events if expect[0] in e.key) != expect[1] * iters:
+            continue
         if us > 0:
             rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
             return us / 1e3 / iters, [[e.key[:80], e.self_device_time_total / 1e3 / iters,
@@ -232,6 +244,24 @@ def _device_profile(fn, iters=20, top=8):
     from tensorrtx_tpu_torch.core.runner import cuda_event_ms
 
     return float(np.median(cuda_event_ms(fn, iters=iters, warmup=0))), [], "cuda_events"
+
+
+def _queued_ms(fn, iters=5):
+    """Device ms per call of fn by CUDA events around `iters` calls that
+    wait behind a GPU sleep (about 50 ms), so that they run back to back:
+    the host's time between launches stays hidden unless enqueueing them
+    takes longer than the sleep. Unlike `_device_profile` it cannot lose
+    a kernel's record, which the profiler does late in this long process."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _timings(**fns):
@@ -1368,10 +1398,12 @@ def phase_planar(device, batches=(1, 32), dtypes=(torch.float32, torch.bfloat16)
     float32 and bf16. Tolerance: |kernel − plain| ≤ 1e-4·(1 + max|plain|)
     in float32 (the two sum up to 432 products in different orders), one
     bf16 rounding step 2⁻⁷·(1 + max|plain|) in bf16. Then, per kernel,
-    batch and dtype, the device time of its shapes' launches, of their
-    plain versions, of `F.conv2d` (conv + bias only, on a contiguous NCHW
-    copy of the same values; a yardstick the port never calls), and the
-    bound (bytes over 3.35 TB/s or float32 flops over 67 TFLOP/s)."""
+    batch and dtype, the device time (`_queued_ms`) of its shapes' launches
+    together and of each shape alone, of their plain versions, of
+    `F.conv2d` (conv + bias only, on a contiguous NCHW copy of the same
+    values; a yardstick the port never calls), and the bound (bytes over
+    3.35 TB/s or float32 flops over 67 TFLOP/s), with the card's clocks
+    just before and just after those timed windows."""
     import torch.nn.functional as F
 
     from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
@@ -1405,13 +1437,18 @@ def phase_planar(device, batches=(1, 32), dtypes=(torch.float32, torch.bfloat16)
                     lib = [(x.permute(0, 2, 1, 3).contiguous(),
                             w.permute(3, 2, 0, 1).to(dtype).contiguous(), bb.to(dtype))
                            for x, w, bb, _, _, _, _ in calls]
-                    st |= _timings(
-                        ms=(lambda: [fns[k](x, w, bb, residual=r, act=a)
-                                     for x, w, bb, r, a, _, _ in calls], 5),
-                        plain_ms=(lambda: [cp.conv_planar_plain(x, w, bb, r, a, k)
-                                           for x, w, bb, r, a, _, _ in calls], 3),
-                        library_ms=(lambda: [F.conv2d(x, w, bb, padding=k // 2)
-                                             for x, w, bb in lib], 5))
+                    st["clocks_before"] = gpu_clocks()
+                    st["ms"] = _queued_ms(lambda: [fns[k](x, w, bb, residual=r, act=a)
+                                                   for x, w, bb, r, a, _, _ in calls])
+                    st["plain_ms"] = _queued_ms(lambda: [cp.conv_planar_plain(x, w, bb, r, a, k)
+                                                         for x, w, bb, r, a, _, _ in calls], 3)
+                    st["library_ms"] = _queued_ms(lambda: [F.conv2d(x, w, bb, padding=k // 2)
+                                                           for x, w, bb in lib])
+                    st["per_shape_ms"] = [
+                        _queued_ms(lambda c=c: fns[k](c[0], c[1], c[2], residual=c[3], act=c[4]))
+                        for c in calls]
+                    st["clocks_after"] = gpu_clocks()
+                    st["ms_source"] = "queued_events"
                 out[(name, b, dtype)] = st
                 log("kernel_vs_plain", kernel=name, batch=b, dtype=str(dtype),
                     hcw_co=[list(c[5][1:5]) for c in calls], **st)
@@ -1867,8 +1904,15 @@ def main():
     })
     f32_, bf16 = torch.float32, torch.bfloat16
     designs = {
-        "conv3x3_planar": "a block of 128 threads per (row, 16 output channels, 128 columns); "
-                          "16 input channels a chunk staged with their halo, a column a thread",
+        "conv3x3_planar": "a block per (run of rows of one image, output-channel tile, the "
+                          "row's columns) in one wave; weights staged once; a ring of 4 input "
+                          "rows with their halo columns, the next row and the residual "
+                          "brought by 16-byte cp.async while a row is computed, one barrier a "
+                          "row; float32 (and bf16 with 9C > 288) on the CUDA cores, 4 columns x "
+                          "8 channels a thread from a 6-value window; bf16 on the tensor cores "
+                          "(mma.sync m16n8k16, weights as bf16 hi + lo, float32 sums), a warp "
+                          "per 32 columns x 16 channels, taps gathered from the ring, SiLU by "
+                          "tanh.approx",
         "conv1x1_planar": "a block per (run of rows, <= 64 output channels, the row's columns) "
                           "in one wave; weights staged once, each row and its residual "
                           "double-buffered by 16-byte cp.async; 4 columns x 8 channels a "

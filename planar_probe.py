@@ -8,8 +8,12 @@ alone in its process, and prints one JSON line per kernel, dtype and
 batch: the device time of all the kernel's shapes together by
 `torch.profiler` (`chip_smoke._device_profile`, over 5 and over --iters
 calls), by CUDA events around --iters calls (which count the gaps
-between launches too), each shape alone by the profiler, and `F.conv2d`
-(conv + bias on a contiguous NCHW copy, TF32 off) over the same shapes.
+between launches too) and around --iters calls queued behind a GPU sleep
+(`chip_smoke._queued_ms`, as `phase_planar` times them; no gaps), each
+shape alone by the profiler, and `F.conv2d`
+(conv + bias on a contiguous NCHW copy, TF32 off) over the same shapes,
+and the card's SM and memory clocks just before and just after those
+timed windows (`nvidia-smi`).
 --package DIR times the `tensorrtx_tpu_torch` under DIR (another checkout,
 such as the parent commit unpacked), so that two trees can be timed on
 the same card in turns, each in its own process. Exits non-zero without a
@@ -74,13 +78,19 @@ def main():
                 def run(cs_=calls, k_=k):
                     return [fns[k_](x, w, bb, residual=r, act=a) for x, w, bb, r, a in cs_]
 
-                st = {f"ms_{n}": cs._device_profile(run, n, top=0)[0] for n in (5, args.iters)}
+                st = {"clocks_before": cs.gpu_clocks()}
+                every = ("planar_kernel", len(calls))   # a window must record every launch
+                st |= {f"ms_{n}": cs._device_profile(run, n, top=0, expect=every)[0]
+                       for n in (5, args.iters)}
                 st["events_ms"] = _event_ms(run, args.iters)
-                st["per_shape_ms"] = [cs._device_profile(lambda c=c: run([c]), args.iters, top=0)[0]
+                st["queued_ms"] = cs._queued_ms(run, args.iters)
+                st["per_shape_ms"] = [cs._device_profile(lambda c=c: run([c]), args.iters, top=0,
+                                                         expect=("planar_kernel", 1))[0]
                                       for c in calls]
                 st["library_ms"] = cs._device_profile(
                     lambda: [F.conv2d(x, w, bb, padding=k // 2) for x, w, bb in lib],
                     args.iters, top=0)[0]
+                st["clocks_after"] = cs.gpu_clocks()
                 cs.log("planar_probe", kernel=f"conv{k}x{k}_planar", batch=b, dtype=str(dtype),
                        package=package, gpu=gpu, **st)
     return 0

@@ -521,25 +521,43 @@ PLANAR_1X1_EDGES = [
 ]
 
 
-def planar_1x1_inputs(case, act, res, dtype):
+# (B, H, C, W, Co) of the 3×3 at its edges
+PLANAR_3X3_EDGES = [
+    (1, 1, 3, 64, 16),        # one row: both halo rows outside the map
+    (2, 2, 5, 40, 3),         # two rows an image; a ragged channel group (Co = 3)
+    (1, 4801, 3, 40, 8),      # H prime and over one wave: runs of R rows, a short last one
+    (2, 301, 4, 64, 16),      # two images, runs that would cross the boundary between them
+    (1, 7, 3, 33, 16),        # W = 33: rows not 16-byte multiples
+    (2, 6, 1, 130, 24),       # C = 1, W = 130: rows not 16-byte multiples
+    (1, 3, 3, 640, 24),       # two column tiles: halo columns from the neighbouring tile
+    (1, 3, 2, 1002, 24),      # 3 (CUDA cores) or 2 (tensor cores) column tiles of unaligned rows
+    (1, 4, 17, 48, 72),       # 2 (CUDA cores) or 5 (tensor cores) Co tiles, a ragged one
+    (2, 3, 200, 96, 24),      # several channel stages a row
+    (1, 5, 33, 64, 16),       # C = 33: bf16 just past the tensor-core form (9 C > 288)
+]
+
+
+def planar_edge_inputs(k, case, act, res, dtype):
     b, h, c, w, co = case
     gen = torch.Generator().manual_seed(sum(case) + 7 * len(str(act)) + res)
     x = torch.randn((b, h, c, w), generator=gen).to(dtype)
-    wt = torch.randn((c, co), generator=gen) / c ** 0.5
+    wt = (torch.randn((c, co), generator=gen) / c ** 0.5 if k == 1
+          else torch.randn((3, 3, c, co), generator=gen) / (9 * c) ** 0.5)
     bias = torch.randn((co,), generator=gen) * 0.1
     r = torch.randn((b, h, co, w), generator=gen).to(dtype) if res else None
     return x, wt, bias, r
 
 
-def check_1x1(cuda, x, wt, bias, r, act, dtype):
+def check_planar(cuda, k, x, wt, bias, r, act, dtype):
     from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
 
     torch.backends.cudnn.allow_tf32 = False
-    before = cp.launches_1x1
-    got = cp.conv1x1_planar(x, wt, bias, residual=r, act=act)
+    counter = "launches_3x3" if k == 3 else "launches_1x1"
+    before = getattr(cp, counter)
+    got = (cp.conv3x3_planar if k == 3 else cp.conv1x1_planar)(x, wt, bias, residual=r, act=act)
     torch.cuda.synchronize()
-    assert cp.launches_1x1 == before + 1
-    ref = cp.conv_planar_plain(x, wt, bias, r, act, 1)
+    assert getattr(cp, counter) == before + 1
+    ref = cp.conv_planar_plain(x, wt, bias, r, act, k)
     tol = (1e-4 if dtype == torch.float32 else 2 ** -7) * (1 + float(ref.float().abs().max()))
     assert got.shape == ref.shape and got.dtype == dtype
     assert float((got.float() - ref.float()).abs().max()) <= tol
@@ -551,9 +569,30 @@ def check_1x1(cuda, x, wt, bias, r, act, dtype):
 @pytest.mark.parametrize("act", ["silu", "relu", None])
 @pytest.mark.parametrize("case", PLANAR_1X1_EDGES, ids=str)
 def test_conv1x1_planar_kernel_matches_plain_at_edges(cuda, case, act, res, dtype):
-    x, wt, bias, r = planar_1x1_inputs(case, act, res, dtype)
-    check_1x1(cuda, x.to(cuda), wt.to(cuda), bias.to(cuda),
-              None if r is None else r.to(cuda), act, dtype)
+    x, wt, bias, r = planar_edge_inputs(1, case, act, res, dtype)
+    check_planar(cuda, 1, x.to(cuda), wt.to(cuda), bias.to(cuda),
+                 None if r is None else r.to(cuda), act, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("act", ["silu", "relu", None])
+@pytest.mark.parametrize("case", PLANAR_3X3_EDGES, ids=str)
+def test_conv3x3_planar_kernel_matches_plain_at_edges(cuda, case, act, res, dtype):
+    x, wt, bias, r = planar_edge_inputs(3, case, act, res, dtype)
+    check_planar(cuda, 3, x.to(cuda), wt.to(cuda), bias.to(cuda),
+                 None if r is None else r.to(cuda), act, dtype)
+
+
+def shifted(t, device):
+    """A contiguous copy of t on device, 4 bytes past an allocation."""
+    k = 4 // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=device)
+    v = buf[k:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    return v
 
 
 @pytest.mark.gpu
@@ -562,18 +601,23 @@ def test_conv1x1_planar_kernel_takes_unaligned_rows(cuda, dtype):
     # contiguous views 4 bytes past an allocation: rows of 16-byte multiples
     # that cannot be read by 16-byte pieces, and an output pointer that
     # takes vector stores beside a residual that does not
-    x, wt, bias, r = planar_1x1_inputs((2, 9, 48, 160, 64), "silu", True, dtype)
+    x, wt, bias, r = planar_edge_inputs(1, (2, 9, 48, 160, 64), "silu", True, dtype)
+    check_planar(cuda, 1, shifted(x, cuda), wt.to(cuda), bias.to(cuda), shifted(r, cuda), "silu",
+                 dtype)
+    check_planar(cuda, 1, shifted(x, cuda), wt.to(cuda), None, None, None, dtype)
 
-    def shifted(t):
-        k = 4 // t.element_size()
-        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=cuda)
-        v = buf[k:].view(t.shape)
-        v.copy_(t)
-        assert v.is_contiguous() and v.data_ptr() % 16
-        return v
 
-    check_1x1(cuda, shifted(x), wt.to(cuda), bias.to(cuda), shifted(r), "silu", dtype)
-    check_1x1(cuda, shifted(x), wt.to(cuda), None, None, None, dtype)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_planar_kernel_takes_unaligned_rows(cuda, dtype):
+    # as the 1×1's: x and the residual 4 bytes past an allocation, staged
+    # element by element; two column tiles (W = 640, Co = 24) whose halo
+    # columns come from the neighbouring tile
+    for case in ((2, 9, 16, 160, 16), (1, 3, 3, 640, 24)):
+        x, wt, bias, r = planar_edge_inputs(3, case, "silu", True, dtype)
+        check_planar(cuda, 3, shifted(x, cuda), wt.to(cuda), bias.to(cuda), shifted(r, cuda),
+                     "silu", dtype)
+        check_planar(cuda, 3, shifted(x, cuda), wt.to(cuda), None, None, None, dtype)
 
 
 @pytest.mark.gpu

@@ -145,12 +145,17 @@ PLANAR = ([(3, act, res) for act, res in (("silu", False), ("relu", True), (None
 # (B, C, Co, H, W) of 1x1 cases at the CUDA kernel's edges: W = 33 (rows not
 # 16-byte multiples), Co = 72 (two channel tiles), C = 1
 PLANAR_1X1_EDGES = [(1, 17, 72, 8, 33), (2, 1, 24, 8, 33), (1, 3, 72, 8, 40)]
+# and 3x3 cases: the C = 3 -> 16 stem, H = 5 with W = 33 (ragged rows, a row
+# tile that is not 8), and B = 2 with a residual across the image boundary
+PLANAR_3X3_EDGES = [(1, 3, 16, 8, 24), (1, 4, 8, 5, 33), (2, 5, 16, 7, 20)]
 
 
 @pytest.mark.parametrize("k,act,res,shape", [
     *(pytest.param(*p, None, id="-".join(map(str, p))) for p in PLANAR),
     *(pytest.param(1, act, res, sh, id=f"1-{act}-{res}-{'x'.join(map(str, sh))}")
       for sh, (act, res) in zip(PLANAR_1X1_EDGES, (("silu", True), ("relu", False), (None, True)))),
+    *(pytest.param(3, act, res, sh, id=f"3-{act}-{res}-{'x'.join(map(str, sh))}")
+      for sh, (act, res) in zip(PLANAR_3X3_EDGES, (("silu", False), ("relu", False), (None, True)))),
 ])
 def test_planar_conv_plain_matches_pallas_kernel(k, act, res, shape):
     rng = np.random.default_rng(10 * k + len(str(act)) + res)
@@ -162,8 +167,8 @@ def test_planar_conv_plain_matches_pallas_kernel(k, act, res, shape):
     jfn, tfn = ((jcp.conv3x3_planar, tcp.conv3x3_planar) if k == 3
                 else (jcp.conv1x1_planar, tcp.conv1x1_planar))
     exp = np.asarray(jfn(jcp.to_planar(jnp.asarray(x)), jnp.asarray(wt), jnp.asarray(bias),
-                         residual=None if r is None else jnp.asarray(r), act=act, th=8,
-                         interpret=True))
+                         residual=None if r is None else jnp.asarray(r), act=act,
+                         th=8 if h % 8 == 0 else h, interpret=True))
     xp = tcp.to_planar(t(x))
     np.testing.assert_array_equal(xp.numpy(), np.asarray(jcp.to_planar(jnp.asarray(x))))
     np.testing.assert_array_equal(tcp.from_planar(xp).numpy(), x)
