@@ -4,8 +4,9 @@
 
 Builds the hand-written CUDA kernels from the checkout and holds each
 against its plain PyTorch version, then drives the port's three serving
-paths at full width (YOLO11n, 640²) and shows that each went through its
-kernels:
+paths at full width (YOLO11n, 640²), each by the eager route (one launch
+per op, whose launch counts show the path went through its kernels) and
+as the captured CUDA graphs a user's calls replay:
 
   env              card, toolchain, nvcc build of every kernel (ptxas report)
   kernel_vs_plain  nms_mask (B = 1, 32) and the int8 convs qconv3x3 /
@@ -20,10 +21,19 @@ kernels:
   int8_parity      the float32-island int8 chain on the card against the
                    port's CPU path, same scales: raw outputs and detections
   int8_serving     `ChainedInt8Engine` (bf16 islands) calibrated on 8
-                   frames, serving b1 requests and b32 batches through
-                   ``__call__`` + `present_detections` (this slice's path)
+                   frames, serving b1 requests and b32 batches by the eager
+                   route (`raw_serve`) + `present_detections`
+  graph_serving    (each path) its b1 and b32 CUDA graphs captured, every
+                   replayed detection dict bit-equal to the eager forward
+                   on the same frames (3 frame sets of different true sizes
+                   at each batch), b1/b32 served through ``__call__`` /
+                   `detect_images` and timed beside the eager route: wall,
+                   device time from queued CUDA events, idle share, pinned
+                   H2D, capture seconds, memory
+  stream           (chain, float) `stream_fn(16)`: 16 batch-1 forwards in
+                   one graph, bit-equal to 16 eager b1 forwards
   f32_parity       the float32 float path on the card against the CPU path
-  serving          bf16 `ServingPipeline.detect_images` b1/b32 (the float path)
+  serving          bf16 float path (`ServingPipeline.fused`) b1/b32, eager
   fq_calibrate     a bf16 `QuantizedEngine` (the float-resident int8 tier)
                    calibrated with entropy on 8 frames
   kernel_vs_plain  quantize_int8 (both standalone forms) at the tier's 80
@@ -50,17 +60,30 @@ kernels:
                    recomputed by its plain version (quantize, then conv)
   fq_parity        the tier with a float32 engine on the card against the
                    port's CPU path, same scales
-  fq_serving       the bf16 tier serving b1 requests and b32 batches through
-                   `ServingPipeline.detect_images`: 45 qconv1x1 launches
-                   from float sources the kernel quantizes itself, 35
-                   quantize_int8 launches (the 3×3 inputs, where they lie)
-                   and 35 int8-source qconv3x3, and an NMS per forward; then
-                   a census of one request's copy and quantize kernels
-                   (profiler stacks) on this path and on the unfused route
+  fq_serving       the bf16 tier serving b1 requests and b32 batches by the
+                   eager route: 45 qconv1x1 launches from float sources the
+                   kernel quantizes itself, 35 quantize_int8 launches (the
+                   3×3 inputs, where they lie) and 35 int8-source qconv3x3,
+                   and an NMS per forward; then a census of one request's
+                   copy and quantize kernels (profiler stacks) on this path
+                   and on the unfused route
+  graph_replay_census  in a child process (``--replay-census DIR``, where
+                   the profiler records every kernel): each path's b1 graph
+                   replayed under `torch.profiler`, every one of the seven
+                   kernels launched the expected number of times per replay
+                   and none from Python; these counts are the kernels'
+                   ``launches_per_replay`` and decide that each captured
+                   path runs its kernels (a replay adds nothing to the
+                   wrappers' counters, whose ``launches`` come from the
+                   eager forwards of the serving phases)
 
 Weights are random (`RandomWeightMap(seed=0)`); no file outside the
 checkout is read. Exits non-zero, without the result line, if there is no
 CUDA device or any phase fails. It imports neither JAX nor the JAX package.
+Device times of the serving phases come from CUDA events around calls
+queued behind a GPU sleep (`core/profiler.device_p50_ms`); the profiler
+gives only their largest items, from windows whose launches it recorded
+in full.
 
 Output: one JSON line per phase, then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -218,50 +241,21 @@ def _device_profile(fn, iters=20, top=8, expect=None):
     window, and late in a long process it can drop some of a window's
     kernels. With `expect` = (a part of a kernel's name, its launches per
     call), a window counts only if it recorded every one of those
-    launches. After three windows that do not count, the time is the
-    median of CUDA-event times around each call instead, which count the
-    gaps between launches too: the source is then "cuda_events", there are
-    no items, and every number built on it carries that source into the
-    log."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        us = sum(e.self_device_time_total for e in events)
-        if expect is not None and sum(e.count for e in events if expect[0] in e.key) != expect[1] * iters:
-            continue
-        if us > 0:
-            rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
-            return us / 1e3 / iters, [[e.key[:80], e.self_device_time_total / 1e3 / iters,
-                                        e.count / iters] for e in rows], "profiler"
+    launches (`core/profiler.kernel_table`). After three windows that do
+    not count, the time is the median of CUDA-event times around each
+    call instead, which count the gaps between launches too: the source
+    is then "cuda_events", there are no items, and every number built on
+    it carries that source into the log."""
+    from tensorrtx_tpu_torch.core.profiler import kernel_table
     from tensorrtx_tpu_torch.core.runner import cuda_event_ms
 
-    return float(np.median(cuda_event_ms(fn, iters=iters, warmup=0))), [], "cuda_events"
-
-
-def _queued_ms(fn, iters=5):
-    """Device ms per call of fn by CUDA events around `iters` calls that
-    wait behind a GPU sleep (about 50 ms), so that they run back to back:
-    the host's time between launches stays hidden unless enqueueing them
-    takes longer than the sleep. Unlike `_device_profile` it cannot lose
-    a kernel's record, which the profiler does late in this long process."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    rows = kernel_table(fn, iters, None if expect is None else {expect[0]: expect[1] * iters})
+    if rows is None:
+        return float(np.median(cuda_event_ms(fn, iters=iters, warmup=0))), [], "cuda_events"
+    return (sum(ms for _, ms, _ in rows) / iters,
+            [[key[:80], ms / iters, n / iters] for key, ms, n in rows[:top]], "profiler")
 
 
 def _timings(**fns):
@@ -549,12 +543,12 @@ def phase_f32_parity(device, size=SIZE, bucket=BUCKET):
     if lb_err > 1e-5:
         raise AssertionError(f"letterbox on {device} vs cpu: max abs err {lb_err}")
 
-    raws = [ServingPipeline(_engine("fp32", d, size, postprocess="raw"), *bucket)(frames, src_hw)
-            for d in (device, cpu)]
+    raws = [_eager(ServingPipeline(_engine("fp32", d, size, postprocess="raw"), *bucket).fused,
+                   frames, src_hw, d) for d in (device, cpu)]
     raw = _check_raw("f32", raws, 1e-2, 0.999)
     dets = _check_detections("f32", raws, lambda thr: [
-        ServingPipeline(_engine("fp32", d, size, conf_thresh=thr), *bucket)(frames, src_hw)
-        for d in (device, cpu)])
+        _eager(ServingPipeline(_engine("fp32", d, size, conf_thresh=thr), *bucket).fused,
+               frames, src_hw, d) for d in (device, cpu)])
     log("f32_parity", size=size, frames=[list(s) for s in shapes],
         letterbox_max_abs_err=lb_err, **raw, **dets)
 
@@ -568,17 +562,40 @@ def _serving_images(bucket=BUCKET):
     return images[:1], [images[i % len(images)] for i in range(32)]
 
 
-def _timed_serving(phase, device, serve, per_forward, bucket=BUCKET, n_b1=30, n_b32=5,
+def _eager(fn, frames, src_hw, device):
+    """fn (a pipeline's `fused`, a chained engine's `raw_serve`) on the
+    frames copied to `device` from pageable host memory: the eager route,
+    one launch per op, as every serving path ran before the CUDA graphs."""
+    return fn(torch.from_numpy(frames).to(device),
+              torch.from_numpy(np.asarray(src_hw, np.int32)).to(device))
+
+
+def _eager_serve(fn, device, cfg, bucket=BUCKET):
+    """serve(images) → per-image detections by the eager route."""
+    from tensorrtx_tpu_torch.core.runner import present_detections
+
+    def serve(images):
+        frames, src_hw = frames_of(images, bucket)
+        return present_detections(_eager(fn, frames, src_hw, device), src_hw, cfg)
+    return serve
+
+
+def _timed_serving(phase, device, fused, cfg, per_forward, bucket=BUCKET, n_b1=30, n_b32=5,
                    **info):
-    """Serve b1 requests and b32 batches with ``serve(images)`` (a list of
-    per-image detection dicts back): warm both, set the launch counts to 0,
-    time n_b1 b1 and n_b32 b32 calls with CUDA events, read the counts and
-    check that each forward launched `per_forward` of each kernel and an
-    NMS, and that the detections are well formed; then the device time per
-    call and its largest items from a separate profiled window. Returns
-    (launches of the run, timings)."""
+    """Serve b1 requests and b32 batches by the eager route (`_eager_serve`
+    of the path's device function ``fused``): warm both, set the launch
+    counts to 0, time n_b1 b1 and n_b32 b32 calls with CUDA events (wall),
+    read the counts and check that each forward launched `per_forward` of
+    each kernel and an NMS, and that the detections are well formed. Then
+    the device time per call: the forward on device-resident frames from
+    CUDA events queued behind a GPU sleep (`core/profiler.device_p50_ms`),
+    plus the pageable H2D of the frames; and the largest device items of a
+    served call from a profiled window whose NMS launches are all recorded.
+    Returns (launches of the run, timings)."""
+    from tensorrtx_tpu_torch.core.profiler import device_p50_ms
     from tensorrtx_tpu_torch.core.runner import cuda_event_ms
 
+    serve = _eager_serve(fused, device, cfg, bucket)
     one, batch32 = _serving_images(bucket)
     serve(one)                               # warm: cuDNN algorithm choice
     serve(batch32)
@@ -610,27 +627,152 @@ def _timed_serving(phase, device, serve, per_forward, bucket=BUCKET, n_b1=30, n_
     timing = {"b1_ms_per_img": float(np.median(b1)),
               "b32_ms_per_img": float(np.median(b32)) / 32}
     if device.type == "cuda":
-        dev1, top1, src1 = _device_profile(lambda: serve(one), iters=10)
-        dev32, top32, src32 = _device_profile(lambda: serve(batch32), iters=3)
-        timing |= {"b1_device_ms_per_img": dev1, "b32_device_ms_per_img": dev32 / 32,
-                   "device_ms_source": {"b1": src1, "b32": src32},
-                   "b1_device_idle_share": 1 - dev1 / timing["b1_ms_per_img"],
-                   "b32_device_idle_share": 1 - dev32 / 32 / timing["b32_ms_per_img"],
-                   "b1_top_device_items": top1, "b32_top_device_items": top32}
-    log(phase, **info, requests_b1=n_b1, batches_b32=n_b32, **timing, launches=launches,
-        launches_per_forward={k: v / n_fwd for k, v in launches.items()},
+        dev = {}
+        for b, images, iters in ((1, one, 10), (32, batch32, 3)):
+            frames, src_hw = frames_of(images, bucket)
+            args = (torch.from_numpy(frames).to(device), torch.from_numpy(src_hw).to(device))
+            fwd = device_p50_ms(fused, [args], iters)
+            h2d = float(np.median(cuda_event_ms(lambda: torch.from_numpy(frames).to(device),
+                                                iters=10 if b == 1 else 5, warmup=1)))
+            dev[b] = (fwd, h2d)
+        timing |= {f"b{b}_{k}": v for b, (fwd, h2d) in dev.items()
+                   for k, v in (("forward_ms", fwd), ("h2d_pageable_ms", h2d))}
+        timing |= {"b1_device_ms_per_img": sum(dev[1]),
+                   "b32_device_ms_per_img": sum(dev[32]) / 32,
+                   "device_ms_source": "queued_events (forward) + cuda_events (pageable H2D)"}
+        timing |= {f"b{b}_device_idle_share": 1 - timing[f"b{b}_device_ms_per_img"]
+                   / timing[f"b{b}_ms_per_img"] for b in (1, 32)}
+        timing |= {f"b{b}_top_device_items": _device_profile(lambda: serve(images), iters,
+                                                             expect=("nms_mask_kernel", 1))[1] or None
+                   for b, images, iters in ((1, one, 10), (32, batch32, 3))}
+    log(phase, **info, route="eager", requests_b1=n_b1, batches_b32=n_b32, **timing,
+        launches=launches, launches_per_forward={k: v / n_fwd for k, v in launches.items()},
         counts_b1=[len(r["boxes"]) for r in results[0]])
     return launches, timing
 
 
-def phase_serving(device, size=SIZE, bucket=BUCKET):
-    """bf16 YOLO11n serving through detect_images (the float path): b1
+def phase_serving(device, pipe, bucket=BUCKET):
+    """bf16 YOLO11n serving (the float path) by the eager route: b1
     requests and b32 batches."""
-    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+    return _timed_serving("serving", device, pipe.fused, pipe.engine.cfg, {}, bucket,
+                          precision="bf16", size=pipe.engine.cfg.input_h)
 
-    pipe = ServingPipeline(_engine("bf16", device, size, conf_thresh=0.25), *bucket)
-    return _timed_serving("serving", device, pipe.detect_images, {}, bucket,
-                          precision="bf16", size=size)
+
+def _graph_frame_sets(b, bucket=BUCKET):
+    """Three frame sets of b images each: at b = 1 one image each of
+    640×480, 426×640 and 320×320; at b = 32 images of random true sizes
+    from 160² up to the bucket."""
+    sets = []
+    for j in range(3):
+        if b == 1:
+            shapes = [[(bucket[0] * 3 // 4, bucket[1]), (bucket[0], bucket[1] * 2 // 3),
+                       (bucket[0] // 2, bucket[1] // 2)][j]]
+        else:
+            rng = np.random.default_rng(30 + j)
+            shapes = [(int(rng.integers(bucket[0] // 4, bucket[0] + 1)),
+                       int(rng.integers(bucket[1] // 4, bucket[1] + 1))) for _ in range(b)]
+        sets.append(frames_of(synthetic_frames(20 + 10 * j + b, shapes), bucket))
+    return sets
+
+
+def _check_bit_equal(what, got, ref):
+    diff = [k for k in ref if not torch.equal(got[k], ref[k])]
+    if set(got) != set(ref) or diff:
+        raise AssertionError(f"{what}: the replay differs from the eager forward in "
+                             f"{diff or sorted(set(got) ^ set(ref))}")
+
+
+def phase_graph_serving(path, device, call, fused, graphs, serve, eager, bucket=BUCKET,
+                        n_b1=30, n_b32=5):
+    """One path served by its captured CUDA graphs (`core/runner.GraphRunner`):
+    capture b1 and b32 (warm-up and capture seconds); hold the replayed
+    detection dict bit-equal to the eager forward (``fused`` on the same
+    frames, copied to the card) on three frame sets of different true sizes
+    at each batch; then time n_b1 b1 requests and n_b32 b32 batches through
+    ``serve`` (`detect_images`, or ``__call__`` and `present_detections`)
+    as `_timed_serving` times the eager route (``eager``, its timings in
+    this run), the device time of one replayed call (pinned H2D + replay +
+    the copies of its outputs) from queued CUDA events, the pinned H2D
+    alone, and the memory the graphs hold and the peak."""
+    from tensorrtx_tpu_torch.core.profiler import device_p50_ms, queued_ms
+    from tensorrtx_tpu_torch.core.runner import cuda_event_ms
+
+    cuda = device.type == "cuda"
+    capture_s, st = {}, {}
+    if cuda:
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        for b in (1, 32):
+            st[b] = graphs.staged((b, *bucket, 3))
+            capture_s[f"b{b}"] = st[b].capture_s
+        held = torch.cuda.memory_allocated(device) - held0
+    sizes = {}
+    for b in (1, 32):
+        sets = _graph_frame_sets(b, bucket)
+        for j, (frames, src_hw) in enumerate(sets):
+            _check_bit_equal(f"graph_serving ({path}) b{b} frame set {j}", call(frames, src_hw),
+                             _eager(fused, frames, src_hw, device))
+        sizes[f"b{b}"] = [len({tuple(hw) for hw in src_hw.tolist()}) for _, src_hw in sets]
+    timing = {}
+    if cuda:
+        one, batch32 = _serving_images(bucket)
+        b1 = cuda_event_ms(lambda: serve(one), iters=n_b1, warmup=1)
+        b32 = cuda_event_ms(lambda: serve(batch32), iters=n_b32, warmup=1)
+        dev1 = device_p50_ms(st[1].launch, [()], 20)
+        dev32 = device_p50_ms(st[32].launch, [()], 5)
+        timing = {"b1_ms_per_img": float(np.median(b1)), "b32_ms_per_img": float(np.median(b32)) / 32,
+                  "b1_device_ms_per_img": dev1, "b32_device_ms_per_img": dev32 / 32,
+                  "device_ms_source": "queued_events",
+                  "b1_h2d_pinned_ms": queued_ms(lambda: st[1].frames.copy_(
+                      st[1].host_frames, non_blocking=True), 20),
+                  "b32_h2d_pinned_ms": queued_ms(lambda: st[32].frames.copy_(
+                      st[32].host_frames, non_blocking=True), 5)}
+        timing |= {f"b{b}_device_idle_share": 1 - timing[f"b{b}_device_ms_per_img"]
+                   / timing[f"b{b}_ms_per_img"] for b in (1, 32)}
+        timing |= {"capture_s": capture_s, "graphs_hold_gb": held / 1e9,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                   "b1_wall_graph_over_eager": timing["b1_ms_per_img"] / eager["b1_ms_per_img"],
+                   "b32_wall_graph_over_eager": timing["b32_ms_per_img"] / eager["b32_ms_per_img"]}
+    keys = ("b1_ms_per_img", "b32_ms_per_img", "b1_device_ms_per_img", "b32_device_ms_per_img",
+            "b1_device_idle_share", "b32_device_idle_share", "b32_h2d_pageable_ms")
+    log("graph_serving", path=path, route="cuda_graph", requests_b1=n_b1, batches_b32=n_b32,
+        bit_equal_frame_sets={k: len(v) for k, v in sizes.items()},
+        distinct_true_sizes_per_set=sizes, **timing,
+        eager={k: eager[k] for k in keys if k in eager})
+    return timing
+
+
+def phase_stream(path, device, owner, fused, eager, k=16, bucket=BUCKET):
+    """`stream_fn(k)` of a path: k batch-1 forwards in one CUDA graph, held
+    bit-equal to k eager b1 forwards on the same frames (16 true sizes);
+    the device time per image of one replayed call from queued CUDA events,
+    beside the eager route's b1 device time in this run."""
+    from tensorrtx_tpu_torch.core.profiler import device_p50_ms
+
+    rng = np.random.default_rng(40)
+    shapes = [(int(rng.integers(bucket[0] // 4, bucket[0] + 1)),
+               int(rng.integers(bucket[1] // 4, bucket[1] + 1))) for _ in range(k)]
+    frames, src_hw = frames_of(synthetic_frames(41, shapes), bucket)
+    run = owner.stream_fn(k)
+    t0 = time.perf_counter()
+    got = run(frames, src_hw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for i in range(k):
+        _check_bit_equal(f"stream ({path}) frame {i}", {key: v[i] for key, v in got.items()},
+                         _eager(fused, frames[i:i + 1], src_hw[i:i + 1], device))
+    st = {}
+    if device.type == "cuda":
+        per_call = device_p50_ms(run.staged(frames.shape).launch, [()], 5)
+        st = {"device_ms_per_img": per_call / k, "device_ms_source": "queued_events",
+              "eager_b1_device_ms_per_img": eager["b1_device_ms_per_img"],
+              "eager_b1_forward_ms": eager["b1_forward_ms"]}
+    log("stream", path=path, k=k, bit_equal_frames=k, leaf_shapes={key: list(v.shape)
+                                                                    for key, v in got.items()},
+        capture_and_first_call_s=first_s, **st)
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -727,7 +869,7 @@ def main_path_qconvs(ce, size=SIZE):
                       "residual": "residual" in kw})
     frames = np.zeros((1, size, size, 3), np.uint8)
     with _qconv_hook(hook):
-        ce(frames)
+        _eager(ce.raw_serve, frames, [[size, size]], ce.device)
     return calls
 
 
@@ -950,7 +1092,7 @@ def phase_int8_shadow(ce, frames, src_hw):
 
     _reset_launches()
     with _qconv_hook(hook):
-        out = ce(frames, src_hw)
+        out = _eager(ce.raw_serve, frames, src_hw, ce.device)
     if ce.device.type == "cuda":
         torch.cuda.synchronize()
     launches = _launches()
@@ -977,14 +1119,14 @@ def phase_int8_parity(device, size=SIZE, bucket=BUCKET):
     raw = {d: _chained("fp32", d, size, torch.float32, postprocess="raw") for d in (device, cpu)}
     scales = raw[device].calibrate([frames])
     raw[cpu].set_scales(scales)
-    raws = [raw[d](frames, src_hw) for d in (device, cpu)]
+    raws = [_eager(raw[d].raw_serve, frames, src_hw, d) for d in (device, cpu)]
 
     def serve_at(thr):
         outs = []
         for d in (device, cpu):
             ce = _chained("fp32", d, size, torch.float32, conf_thresh=thr)
             ce.set_scales(scales)
-            outs.append(ce(frames, src_hw))
+            outs.append(_eager(ce.raw_serve, frames, src_hw, d))
         return outs
 
     log("int8_parity", size=size, frames=[list(s) for s in shapes], scales=len(scales),
@@ -993,16 +1135,22 @@ def phase_int8_parity(device, size=SIZE, bucket=BUCKET):
 
 def phase_int8_serving(device, ce, bucket=BUCKET):
     """The chained int8 engine (bf16 islands) serving b1 requests and b32
-    batches through ``__call__`` + `present_detections`: 31 qconv3x3, 37
-    qconv1x1 and an NMS per forward."""
+    batches by the eager route (`raw_serve`) + `present_detections`: 31
+    qconv3x3, 37 qconv1x1 and an NMS per forward."""
+    return _timed_serving("int8_serving", device, ce.raw_serve, ce.cfg,
+                          {"qconv3x3": 31, "qconv1x1": 37}, bucket, islands=str(ce.dtype),
+                          scales=ce.n_scales)
+
+
+def _chain_serve(ce, bucket=BUCKET):
+    """serve(images) → per-image detections through the chained engine's
+    ``__call__`` (its captured graphs on the card)."""
     from tensorrtx_tpu_torch.core.runner import present_detections
 
     def serve(images):
         frames, src_hw = frames_of(images, bucket)
         return present_detections(ce(frames, src_hw), src_hw, ce.cfg)
-
-    return _timed_serving("int8_serving", device, serve, {"qconv3x3": 31, "qconv1x1": 37},
-                          bucket, islands=str(ce.dtype), scales=ce.n_scales)
+    return serve
 
 
 # ---------------------------------------------------------------------------
@@ -1398,7 +1546,7 @@ def phase_planar(device, batches=(1, 32), dtypes=(torch.float32, torch.bfloat16)
     float32 and bf16. Tolerance: |kernel − plain| ≤ 1e-4·(1 + max|plain|)
     in float32 (the two sum up to 432 products in different orders), one
     bf16 rounding step 2⁻⁷·(1 + max|plain|) in bf16. Then, per kernel,
-    batch and dtype, the device time (`_queued_ms`) of its shapes' launches
+    batch and dtype, the device time (`core/profiler.queued_ms`) of its shapes' launches
     together and of each shape alone, of their plain versions, of
     `F.conv2d` (conv + bias only, on a contiguous NCHW copy of the same
     values; a yardstick the port never calls), and the bound (bytes over
@@ -1406,6 +1554,7 @@ def phase_planar(device, batches=(1, 32), dtypes=(torch.float32, torch.bfloat16)
     just before and just after those timed windows."""
     import torch.nn.functional as F
 
+    from tensorrtx_tpu_torch.core.profiler import queued_ms
     from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
 
     fns = {3: cp.conv3x3_planar, 1: cp.conv1x1_planar}
@@ -1438,14 +1587,14 @@ def phase_planar(device, batches=(1, 32), dtypes=(torch.float32, torch.bfloat16)
                             w.permute(3, 2, 0, 1).to(dtype).contiguous(), bb.to(dtype))
                            for x, w, bb, _, _, _, _ in calls]
                     st["clocks_before"] = gpu_clocks()
-                    st["ms"] = _queued_ms(lambda: [fns[k](x, w, bb, residual=r, act=a)
+                    st["ms"] = queued_ms(lambda: [fns[k](x, w, bb, residual=r, act=a)
                                                    for x, w, bb, r, a, _, _ in calls])
-                    st["plain_ms"] = _queued_ms(lambda: [cp.conv_planar_plain(x, w, bb, r, a, k)
+                    st["plain_ms"] = queued_ms(lambda: [cp.conv_planar_plain(x, w, bb, r, a, k)
                                                          for x, w, bb, r, a, _, _ in calls], 3)
-                    st["library_ms"] = _queued_ms(lambda: [F.conv2d(x, w, bb, padding=k // 2)
+                    st["library_ms"] = queued_ms(lambda: [F.conv2d(x, w, bb, padding=k // 2)
                                                            for x, w, bb in lib])
                     st["per_shape_ms"] = [
-                        _queued_ms(lambda c=c: fns[k](c[0], c[1], c[2], residual=c[3], act=c[4]))
+                        queued_ms(lambda c=c: fns[k](c[0], c[1], c[2], residual=c[3], act=c[4]))
                         for c in calls]
                     st["clocks_after"] = gpu_clocks()
                     st["ms_source"] = "queued_events"
@@ -1539,7 +1688,7 @@ def phase_fq_shadow(qe, frames, src_hw):
     pipe = ServingPipeline(qe, *BUCKET)
     _reset_launches()
     with _qconv_hook(hook):
-        out = pipe(frames, src_hw)
+        out = _eager(pipe.fused, frames, src_hw, qe.device)
     if qe.device.type == "cuda":
         torch.cuda.synchronize()
     launches = _launches()
@@ -1576,7 +1725,7 @@ def _int8_inputs(qe, frames, src_hw, bucket=BUCKET, skip=None):
     def hook(name, args, kw, out):
         outs.append(qz.quantize_int8_plain(args[0], kw["sx"], divide=True))
     with _qconv_hook(hook):
-        raw = ServingPipeline(qe, *bucket)(frames, src_hw)
+        raw = _eager(ServingPipeline(qe, *bucket).fused, frames, src_hw, qe.device)
     order = [sl.index for sl in qe.slots() if not sl.depthwise and sl.index != skip]
     if len(outs) != len(order):
         raise AssertionError(f"{len(outs)} qconv calls for {len(order)} int8 convs")
@@ -1666,8 +1815,8 @@ def phase_fq_parity(device, size=SIZE, bucket=BUCKET):
     if flips["int8_input_flip_share"] > FQ_FLIP_MAX:
         raise AssertionError(f"tier int8 conv inputs differ from the CPU's: {flips}")
     dets = _check_detections("tier", [got, ref], lambda thr: [
-        ServingPipeline(_quantized("fp32", d, size, scales, conf_thresh=thr), *bucket)(
-            frames, src_hw) for d in (device, cpu)])
+        _eager(ServingPipeline(_quantized("fp32", d, size, scales, conf_thresh=thr),
+                               *bucket).fused, frames, src_hw, d) for d in (device, cpu)])
     log("fq_parity", size=size, frames=[list(s) for s in shapes], scales=len(scales),
         **raw, **flips, **dets,
         fault_controls=_fault_controls(qe, frames, src_hw, ref, ref_q, bucket))
@@ -1701,27 +1850,28 @@ def _copy_census(fn):
                                     for e in events)}
 
 
-def phase_fq_serving(device, qe, bucket=BUCKET):
-    """The tier (bf16 engine) serving b1 requests and b32 batches through
-    `ServingPipeline.detect_images`: FQ_LAUNCHES and an NMS per forward;
-    then one b1 request under the profiler with Python stacks, on this path
-    and with `quant_conv2d` swapped for the unfused route
-    (`_unfused_conv2d`): this path makes no copy in `ops/quant_ctx.py` and
-    launches a quantize kernel for the 3×3 inputs only, and the census shows
-    the copies and launches the tier's route took away."""
-    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+def phase_fq_serving(device, pipe, bucket=BUCKET):
+    """The tier (a `ServingPipeline` over a bf16 `QuantizedEngine`) serving
+    b1 requests and b32 batches by the eager route (`fused`): FQ_LAUNCHES
+    and an NMS per forward; then one b1 request under the profiler with
+    Python stacks, on this path and with `quant_conv2d` swapped for the
+    unfused route (`_unfused_conv2d`): this path makes no copy in
+    `ops/quant_ctx.py` and launches a quantize kernel for the 3×3 inputs
+    only, and the census shows the copies and launches the tier's route
+    took away."""
     from tensorrtx_tpu_torch.ops import quant_ctx
 
-    pipe = ServingPipeline(qe, *bucket)
-    launches, timing = _timed_serving("fq_serving", device, pipe.detect_images, FQ_LAUNCHES,
+    qe = pipe.engine
+    launches, timing = _timed_serving("fq_serving", device, pipe.fused, qe.cfg, FQ_LAUNCHES,
                                       bucket, precision="bf16", scales=len(qe.act_scales))
     if device.type == "cuda":
         one, _ = _serving_images(bucket)
-        fused = _copy_census(lambda: pipe.detect_images(one))
+        serve = _eager_serve(pipe.fused, device, qe.cfg, bucket)
+        fused = _copy_census(lambda: serve(one))
         real = quant_ctx.quant_conv2d
         quant_ctx.quant_conv2d = _unfused_conv2d
         try:
-            unfused = _copy_census(lambda: pipe.detect_images(one))
+            unfused = _copy_census(lambda: serve(one))
         finally:
             quant_ctx.quant_conv2d = real
         log("fq_serving_copies", batch=1, fused=fused, unfused=unfused)
@@ -1731,11 +1881,98 @@ def phase_fq_serving(device, qe, bucket=BUCKET):
     return launches, timing
 
 
+# the seven kernels' names in the card's profile, by the wrappers' launch
+# counter names (`_launches`), and the launches of each in one forward of
+# each captured path
+KERNEL_NAMES = {"nms_mask": "nms_mask_kernel", "qconv3x3": "qconv3x3_mma_kernel",
+                "qconv1x1": "qconv1x1_mma_kernel", "quantize_int8": "quantize_kernel",
+                "quantize_int8_stochastic": "quantize_sr_kernel",
+                "conv3x3_planar": "conv3x3_planar_kernel",
+                "conv1x1_planar": "conv1x1_planar_kernel"}
+PER_REPLAY = {"float": {"nms_mask": 1},
+              "chain": {"nms_mask": 1, "qconv3x3": 31, "qconv1x1": 37},
+              "tier": {"nms_mask": 1, "qconv3x3": 35, "qconv1x1": 45, "quantize_int8": 35}}
+CENSUS_REPLAYS = 5
+
+
+def _census_paths(device, chain_scales, tier_scales):
+    """The three serving paths at full size (bf16, conf 0.25), each as the
+    call a user makes: name → (``__call__``, its graph runner)."""
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+
+    pipe = ServingPipeline(_engine("bf16", device, SIZE, conf_thresh=0.25), *BUCKET)
+    ce = _chained("bf16", device, SIZE, conf_thresh=0.25)
+    ce.set_scales(chain_scales)
+    tier = ServingPipeline(_quantized("bf16", device, SIZE, tier_scales, conf_thresh=0.25),
+                           *BUCKET)
+    return {"float": pipe, "chain": ce, "tier": tier}
+
+
+def census_main(scales_dir):
+    """The replay census, in a process of its own (``--replay-census DIR``):
+    early in a process `torch.profiler` records every kernel. Each path
+    captures its b1 graph, sets the launch counts to 0 and serves
+    CENSUS_REPLAYS b1 requests under the profiler; a window counts only if
+    it shows exactly PER_REPLAY launches of each of the seven kernels per
+    replay (0 for a kernel the path does not run), up to three windows a
+    path (`core/profiler.kernel_table`), and the wrappers' launch counters
+    must stay at 0 (no launch from Python: every kernel came from a
+    replay). Prints one JSON line with each path's launches per replay."""
+    from tensorrtx_tpu_torch.core.profiler import kernel_table, launches
+
+    device = torch.device("cuda", 0)
+    paths = _census_paths(device, np.load(f"{scales_dir}/chain.npy"),
+                          np.load(f"{scales_dir}/tier.npy"))
+    frames, src_hw = frames_of(_serving_images()[0])
+    out = {}
+    for name, call in paths.items():
+        call(frames, src_hw)                 # capture
+        torch.cuda.synchronize()
+        want = {part: PER_REPLAY[name].get(k, 0) * CENSUS_REPLAYS for k, part in KERNEL_NAMES.items()}
+        _reset_launches()
+        rows = kernel_table(lambda: call(frames, src_hw), CENSUS_REPLAYS, want)
+        counted = {k: v for k, v in _launches().items() if v}
+        if rows is None or counted:
+            raise AssertionError(f"replay census ({name}): no window of {CENSUS_REPLAYS} replays "
+                                 f"showed {want}, or Python launched {counted}")
+        out[name] = {"replays": CENSUS_REPLAYS, "python_launches": 0,
+                     "launches_per_replay": {k: launches(rows, part) // CENSUS_REPLAYS
+                                             for k, part in KERNEL_NAMES.items()},
+                     "kernel_ms_per_replay": {k: sum(ms for key, ms, _ in rows if part in key)
+                                              / CENSUS_REPLAYS
+                                              for k, part in KERNEL_NAMES.items()
+                                              if PER_REPLAY[name].get(k)}}
+    print(json.dumps({"phase": "graph_replay_census", **out}), flush=True)
+    return 0
+
+
+def phase_replay_census(chain_scales, tier_scales):
+    """Runs `census_main` in a child process (the chain's and the tier's
+    scales handed over in a temporary directory) and returns, by path and
+    by the counters' names, each kernel's launches per replay."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        np.save(f"{d}/chain.npy", chain_scales)
+        np.save(f"{d}/tier.npy", tier_scales)
+        res = subprocess.run([sys.executable, __file__, "--replay-census", d],
+                             capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"phase": "graph_replay_census"')]
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"the replay census failed (rc {res.returncode}):\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    print(lines[-1], flush=True)
+    census = json.loads(lines[-1])
+    return {p: census[p]["launches_per_replay"] for p in PER_REPLAY}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False       # f32 parity: no TF32 convs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1748,9 +1985,17 @@ def main():
     qc = phase_qconv(device, main_path_qconvs(ce))
     shadow = phase_int8_shadow(ce, *frames_of(synthetic_frames(5, [(480, 640), (640, 426)])))
     phase_int8_parity(device)
-    int8_launches, _ = phase_int8_serving(device, ce)
+    int8_launches, int8_timing = phase_int8_serving(device, ce)
+    phase_graph_serving("chain", device, ce, ce.raw_serve, ce.graphs, _chain_serve(ce),
+                        int8_timing)
+    phase_stream("chain", device, ce, ce.raw_serve, int8_timing)
     phase_f32_parity(device)
-    launches, _ = phase_serving(device)
+    pipe = ServingPipeline(_engine("bf16", device, SIZE, conf_thresh=0.25), *BUCKET)
+    launches, float_timing = phase_serving(device, pipe)
+    phase_graph_serving("float", device, pipe, pipe.fused, pipe.graphs, pipe.detect_images,
+                        float_timing)
+    phase_stream("float", device, pipe, pipe.fused, float_timing)
+    del pipe
 
     # the float-resident int8 tier and the standalone kernels
     qe, scales, cal_s = _calibrated("bf16", device, SIZE, "entropy", conf_thresh=0.25)
@@ -1765,12 +2010,21 @@ def main():
     standalone = phase_standalone_ops(device)
     fq_shadow = phase_fq_shadow(qe, *frames_of(synthetic_frames(5, [(480, 640), (640, 426)])))
     phase_fq_parity(device)
-    fq_launches, _ = phase_fq_serving(device, qe)
+    tier = ServingPipeline(qe, *BUCKET)
+    fq_launches, fq_timing = phase_fq_serving(device, tier)
+    phase_graph_serving("tier", device, tier, tier.fused, tier.graphs, tier.detect_images,
+                        fq_timing)
+    del tier
+    per_replay = phase_replay_census(ce.act_scales, scales)
 
-    missing = [k for k in ("nms_mask", "qconv3x3", "qconv1x1") if int8_launches[k] == 0]
-    missing += [f"{k} (float path)" for k in ("nms_mask",) if launches[k] == 0]
-    missing += [f"{k} (int8 tier)" for k in ("nms_mask", "qconv3x3", "qconv1x1_fq",
-                                             "quantize_int8") if fq_launches[k] == 0]
+    # a user's call is a replay: each path's graph must launch its kernels
+    # (the census's profiled replays); the eager forwards, where the
+    # wrappers count, must launch them too
+    missing = [f"{k} ({path} graph)" for path, want in PER_REPLAY.items() for k in want
+               if not per_replay[path][k]]
+    eager = {"float": launches, "chain": int8_launches, "tier": fq_launches}
+    missing += [f"{k} ({path} eager)" for path, want in PER_REPLAY.items() for k in want
+                if not eager[path]["qconv1x1_fq" if (path, k) == ("tier", "qconv1x1") else k]]
     missing += [f"{k} (standalone ops)" for k in ("quantize_int8", "quantize_int8_stochastic",
                                                   "conv3x3_planar", "conv1x1_planar")
                 if standalone[k] == 0]
@@ -1938,6 +2192,15 @@ def main():
                      "library_ms_b32": h32["library_ms"]},
             "ms_source": _source(*(x["ms_source"] for x in (p1, p32, h1, h32))),
         })
+    eager_phase = {"nms_mask": "serving", "qconv3x3": "int8_serving", "qconv1x1": "int8_serving",
+                   "quantize_int8": "fq_serving"}
+    for k in kernels:
+        k["launches_per_replay"] = {p: n[k["name"]] for p, n in per_replay.items() if n[k["name"]]}
+        k["in_graphs"] = list(k["launches_per_replay"])
+        phase = eager_phase.get(k["name"])
+        k["launches_from"] = (f"the wrappers' counters over the eager forwards of {phase} (a "
+                              "replay adds nothing to them)" if phase
+                              else "the wrapper's counter over standalone_ops")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1946,4 +2209,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--replay-census"]:
+        sys.exit(census_main(sys.argv[2]))
     sys.exit(main())

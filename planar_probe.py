@@ -9,15 +9,15 @@ batch: the device time of all the kernel's shapes together by
 `torch.profiler` (`chip_smoke._device_profile`, over 5 and over --iters
 calls), by CUDA events around --iters calls (which count the gaps
 between launches too) and around --iters calls queued behind a GPU sleep
-(`chip_smoke._queued_ms`, as `phase_planar` times them; no gaps), each
+(`core/profiler.queued_ms`, as `phase_planar` times them; no gaps), each
 shape alone by the profiler, and `F.conv2d`
 (conv + bias on a contiguous NCHW copy, TF32 off) over the same shapes,
 and the card's SM and memory clocks just before and just after those
 timed windows (`nvidia-smi`).
---package DIR times the `tensorrtx_tpu_torch` under DIR (another checkout,
-such as the parent commit unpacked), so that two trees can be timed on
-the same card in turns, each in its own process. Exits non-zero without a
-CUDA device.
+--package DIR times the `tensorrtx_tpu_torch` under DIR (another checkout
+that has `core/profiler.py`, such as the parent commit unpacked), so that
+two trees can be timed on the same card in turns, each in its own
+process. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ def main():
     if not torch.cuda.is_available():
         print("planar_probe: no CUDA device", file=sys.stderr)
         return 1
+    from tensorrtx_tpu_torch.core.profiler import queued_ms
     from tensorrtx_tpu_torch.ops.cuda import conv_planar as cp
 
     torch.backends.cudnn.allow_tf32 = False
@@ -83,7 +84,7 @@ def main():
                 st |= {f"ms_{n}": cs._device_profile(run, n, top=0, expect=every)[0]
                        for n in (5, args.iters)}
                 st["events_ms"] = _event_ms(run, args.iters)
-                st["queued_ms"] = cs._queued_ms(run, args.iters)
+                st["queued_ms"] = queued_ms(run, args.iters)
                 st["per_shape_ms"] = [cs._device_profile(lambda c=c: run([c]), args.iters, top=0,
                                                          expect=("planar_kernel", 1))[0]
                                       for c in calls]

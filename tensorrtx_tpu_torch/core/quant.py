@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from tensorrtx_tpu_torch.core.engine import Engine
+from tensorrtx_tpu_torch.core.runner import GraphRunner, check_frames, serve, stream_runner
 from tensorrtx_tpu_torch.models._yolo_blocks import Conv
 from tensorrtx_tpu_torch.ops.preprocess import letterbox_batch
 from tensorrtx_tpu_torch.ops.qchain import ChainCtx, quantize_chain_weights
@@ -333,22 +334,24 @@ class ChainedInt8Engine:
         self.sw = [t.to(self.device) for t in sw]
         self.act_scales: Optional[np.ndarray] = None
         self._scales: Optional[torch.Tensor] = None
+        # the captured programs of `raw_serve` on the card (None on the CPU)
+        self.graphs = (GraphRunner(self.raw_serve, self.device)
+                       if self.device.type == "cuda" else None)
 
     def _ctx(self, mode: str, **kw) -> ChainCtx:
         return ChainCtx(mode, dtype=self.dtype, enter=self.enter, **kw)
 
-    def _input(self, frames, src_hw) -> torch.Tensor:
+    def _letterbox(self, frames: torch.Tensor, src_hw: torch.Tensor) -> torch.Tensor:
+        return letterbox_batch(frames, src_hw, *self._dst,
+                               bgr_to_rgb=self.bgr_to_rgb).to(self.dtype)
+
+    def _input(self, frames) -> torch.Tensor:
+        """Host frames (B, H, W, 3) uint8, each image the whole frame → the
+        letterboxed chain input on the device (the calibration batches)."""
         frames = torch.as_tensor(frames, dtype=torch.uint8)
-        if frames.dim() != 4 or frames.shape[-1] != 3 or frames.shape[0] < 1:
-            raise ValueError(f"expected (B, H, W, 3) uint8 frames with B >= 1, got "
-                             f"shape {tuple(frames.shape)}")
-        b = frames.shape[0]
-        if src_hw is None:
-            src_hw = np.tile([[frames.shape[1], frames.shape[2]]], (b, 1))
-        src_hw = torch.as_tensor(np.asarray(src_hw, np.int32)).to(self.device)
-        x = letterbox_batch(frames.to(self.device), src_hw, *self._dst,
-                            bgr_to_rgb=self.bgr_to_rgb)
-        return x.to(self.dtype)
+        b, h, w, _ = check_frames(frames.shape)
+        src_hw = torch.tensor([[h, w]] * b, dtype=torch.int32)
+        return self._letterbox(frames.to(self.device), src_hw.to(self.device))
 
     def calibrate(self, frame_batches: Iterable[np.ndarray]) -> np.ndarray:
         """frame_batches: uint8 (B, H, W, 3) arrays (true size = frame
@@ -357,7 +360,7 @@ class ChainedInt8Engine:
         for fr in frame_batches:
             ctx = self._ctx("tap")
             with torch.inference_mode():
-                self.chain(self.module, self._input(fr, None), self.cfg, ctx)
+                self.chain(self.module, self._input(fr), self.cfg, ctx)
             cur = torch.stack(ctx.taps).cpu().numpy().astype(np.float32)
             absmax = cur if absmax is None else np.maximum(absmax, cur)
         if absmax is None:
@@ -367,23 +370,45 @@ class ChainedInt8Engine:
         return self.act_scales
 
     def set_scales(self, act_scales) -> None:
-        """Install a calibrated scale table (one float32 per slot)."""
+        """Install a calibrated scale table (one float32 per slot). A table
+        already installed is overwritten in place, so the CUDA graphs
+        captured before read the new scales."""
         s = np.asarray(act_scales, np.float32)
         if s.shape != (self.n_scales,):
             raise ValueError(f"{self.name}: the chain has {self.n_scales} scale slots, "
                              f"the table {s.shape}")
         self.act_scales = s
-        self._scales = torch.from_numpy(s.copy()).to(self.device)
+        if self._scales is None:
+            self._scales = torch.from_numpy(s.copy()).to(self.device)
+        else:
+            self._scales.copy_(torch.from_numpy(s.copy()))
 
-    def __call__(self, frames, src_hw=None):
-        """frames (B, H, W, 3) uint8 in one bucket, src_hw (B, 2) [h, w] of
-        each image in its frame's top-left corner → the detection dict of
-        device tensors (`core.runner.present_detections` maps it back)."""
+    def raw_serve(self, frames: torch.Tensor, src_hw: torch.Tensor) -> dict:
+        """The device side: frames (B, H, W, 3) uint8 and src_hw (B, 2) int32
+        on the engine's device → letterbox → the int8 chain → the detection
+        dict (the JAX package's traceable ``raw_serve``)."""
         if self._scales is None:
             raise ValueError("call calibrate() (or load a calibrated dir) first")
         ctx = self._ctx("run", scales=self._scales, wq=self.wq, sw=self.sw)
         with torch.inference_mode():
-            return self.chain(self.module, self._input(frames, src_hw), self.cfg, ctx)
+            return self.chain(self.module, self._letterbox(frames, src_hw), self.cfg, ctx)
+
+    def __call__(self, frames, src_hw=None):
+        """frames (B, H, W, 3) uint8 in one bucket, src_hw (B, 2) [h, w] of
+        each image in its frame's top-left corner → the detection dict of
+        device tensors (`core.runner.present_detections` maps it back). On
+        the card: one captured CUDA graph of `raw_serve` per frames shape,
+        the frames staged through a pinned buffer (`core.runner.GraphRunner`);
+        on the CPU, `raw_serve` eagerly."""
+        if self._scales is None:
+            raise ValueError("call calibrate() (or load a calibrated dir) first")
+        return serve(self.raw_serve, self.graphs, self.device, frames, src_hw)
+
+    def stream_fn(self, k: int):
+        """``fn(frames (k, H, W, 3) uint8, src_hw (k, 2))`` → each frame
+        served at batch 1, the outputs stacked (`ServingPipeline.stream_fn`);
+        on the card one CUDA graph of k batch-1 chain forwards."""
+        return stream_runner(self.raw_serve, k, self.device)
 
     def save(self, path: str) -> None:
         if self.act_scales is None:

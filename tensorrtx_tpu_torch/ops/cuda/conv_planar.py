@@ -34,6 +34,8 @@ __all__ = ["conv3x3_planar", "conv1x1_planar", "conv_planar_plain", "to_planar",
            "from_planar", "launches_3x3", "launches_1x1"]
 
 # Launches of each CUDA kernel in this process (not of the plain version).
+# A launch captured into a CUDA graph counts once, when it is captured;
+# the graph's replays launch it again without counting.
 launches_3x3 = 0
 launches_1x1 = 0
 

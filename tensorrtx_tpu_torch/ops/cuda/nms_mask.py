@@ -26,6 +26,8 @@ from tensorrtx_tpu_torch.ops.nms import box_iou_matrix, nms_mask
 __all__ = ["keep_mask", "keep_mask_plain", "launches", "MAX_N"]
 
 # Launches of the CUDA kernel in this process (not of the plain version).
+# A launch captured into a CUDA graph counts once, when it is captured;
+# the graph's replays launch it again without counting.
 launches = 0
 
 # The kernel stages 7 float planes of N candidates in shared memory (57 KB

@@ -51,6 +51,8 @@ __all__ = ["qconv3x3", "qconv1x1", "qconv_plain", "act_f", "requant",
 # Launches of each CUDA kernel in this process (not of the plain version):
 # from an int8 source, and (the 1×1) from a float source it quantizes itself.
 # A float source's 3×3 counts one `quantize.launches` and one launches_3x3.
+# A launch captured into a CUDA graph counts once, when it is captured;
+# the graph's replays launch it again without counting.
 launches_3x3 = 0
 launches_1x1 = 0
 launches_1x1_fq = 0

@@ -39,6 +39,8 @@ __all__ = ["quantize_int8", "quantize_int8_plain", "quantize_int8_div_free",
            "launches_stochastic"]
 
 # Launches of each CUDA kernel in this process (not of the plain versions).
+# A launch captured into a CUDA graph counts once, when it is captured;
+# the graph's replays launch it again without counting.
 launches = 0
 launches_stochastic = 0
 

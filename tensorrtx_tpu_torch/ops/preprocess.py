@@ -25,7 +25,9 @@ def _div(num: float, den: torch.Tensor) -> torch.Tensor:
 def letterbox_batch(imgs: torch.Tensor, src_hw, dst_h: int, dst_w: int,
                     border_value: float = 128.0, bgr_to_rgb: bool = False,
                     scale: float = 1.0 / 255.0, offset: float = 0.0) -> torch.Tensor:
-    """(B, H, W, C) uint8 + (B, 2) [h, w] → (B, dst_h, dst_w, C) float32."""
+    """(B, H, W, C) uint8 + (B, 2) [h, w] → (B, dst_h, dst_w, C) float32.
+    src_hw on imgs' device makes no host copy, so the call can be captured
+    into a CUDA graph."""
     b, hh, ww, _ = imgs.shape
     dev = imgs.device
     src_hw = torch.as_tensor(src_hw, device=dev)
@@ -49,7 +51,7 @@ def letterbox_batch(imgs: torch.Tensor, src_hw, dst_h: int, dst_w: int,
     w_lim = src_w.long()
     h_lim = src_h.long()
     bi = torch.arange(b, device=dev)[:, None, None]
-    bv = torch.tensor(border_value, dtype=torch.float32, device=dev)
+    bv = float(border_value)   # a Python scalar: no host-to-device copy per call
 
     def tap(xi, yi):
         vx = (xi >= 0) & (xi < w_lim)

@@ -665,3 +665,139 @@ def test_int8_tier_forward_launches_its_kernels(cuda):
     ref = QuantizedEngine(Engine("yolo11", params, cfg, device="cpu"), scales)(x)
     assert float((out["conf"].cpu() - ref["conf"]).abs().max()) <= 1e-4
     assert float((out["boxes"].cpu() - ref["boxes"]).abs().max()) <= 0.05
+
+
+# --- the serving runner as captured CUDA graphs (core/runner.py) -------------
+
+BUCKET = (120, 100)
+
+
+def frame_set(seed, b):
+    """b random uint8 frames in the bucket, each with its own true size."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (b, *BUCKET, 3), dtype=np.uint8)
+    src_hw = np.stack([rng.integers(40, BUCKET[0] + 1, b),
+                       rng.integers(40, BUCKET[1] + 1, b)], 1).astype(np.int32)
+    return frames, src_hw
+
+
+@pytest.fixture(scope="module")
+def serving_paths():
+    """The three YOLO11n serving paths at 96², bf16 (float, the chained int8
+    tier, the float-resident int8 tier): name → (the captured call, its
+    eager device function, the object that serves it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from tensorrtx_tpu_torch.core.convert import params_from_jax
+    from tensorrtx_tpu_torch.core.engine import Engine
+    from tensorrtx_tpu_torch.core.quant import ChainedInt8Engine, QuantizedEngine, calibrate
+    from tensorrtx_tpu_torch.core.random_weights import RandomWeightMap
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+    from tensorrtx_tpu_torch.models.yolo11 import Yolo11Cfg, build_params
+
+    dev = torch.device("cuda", 0)
+    cfg = Yolo11Cfg(input_h=96, input_w=96, conf_thresh=0.25)
+    params = params_from_jax(build_params(RandomWeightMap(seed=0), cfg))
+    pipe = ServingPipeline(Engine("yolo11", params, cfg, "bf16", dev), *BUCKET)
+    ce = ChainedInt8Engine(Engine("yolo11", params, cfg, "bf16", dev))
+    ce.calibrate([frame_set(1, 4)[0]])
+    eng = Engine("yolo11", params, cfg, "bf16", dev)
+    x = torch.rand((2, 96, 96, 3), generator=torch.Generator().manual_seed(0))
+    tier = ServingPipeline(QuantizedEngine(eng, calibrate(eng, [x], "absmax")), *BUCKET)
+    return {"float": (pipe, pipe.fused, pipe), "chain": (ce, ce.raw_serve, ce),
+            "tier": (tier, tier.fused, tier)}
+
+
+def eager(fn, frames, src_hw):
+    dev = torch.device("cuda", 0)
+    return fn(torch.from_numpy(frames).to(dev), torch.from_numpy(src_hw).to(dev))
+
+
+def assert_same(got, ref, what):
+    assert set(got) == set(ref), what
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), f"{what}: {k} differs"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("path", ["float", "chain", "tier"])
+def test_graph_replay_bit_equal_to_eager(serving_paths, path, b):
+    # frames and their true sizes change from call to call; each call's
+    # output is read after every later call, so none overwrites another
+    call, fn, _ = serving_paths[path]
+    sets = [frame_set(10 * b + i, b) for i in range(3)]
+    outs = [call(*s) for s in sets]
+    for i, s in enumerate(sets):
+        assert_same(outs[i], eager(fn, *s), f"{path} b{b} set {i}")
+    assert outs[0]["count"].shape == (b,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["float", "tier"])
+def test_detect_images_ignores_pixels_outside_images(serving_paths, path):
+    # the pinned buffer keeps the last call's pixels outside each image
+    pipe = serving_paths[path][2]
+    big, _ = frame_set(40, 2)
+    pipe.detect_images(list(big))
+    frames, src_hw = frame_set(41, 2)
+    images = [f[:h, :w] for f, (h, w) in zip(frames, src_hw)]
+    got = pipe.detect_images(images)
+    padded = np.zeros_like(frames)
+    for i, im in enumerate(images):
+        padded[i, :im.shape[0], :im.shape[1]] = im
+    from tensorrtx_tpu_torch.core.runner import present_detections
+
+    ref = present_detections(eager(pipe.fused, padded, src_hw), src_hw, pipe.engine.cfg)
+    for g, r in zip(got, ref):
+        for k in r:
+            np.testing.assert_array_equal(g[k], r[k])
+
+
+@pytest.mark.gpu
+def test_chain_graph_follows_set_scales(serving_paths):
+    ce = serving_paths["chain"][2]
+    frames, src_hw = frame_set(50, 2)
+    old = ce.act_scales.copy()
+    before = ce(frames, src_hw)
+    try:
+        ce.set_scales(old * 1.5)
+        after = ce(frames, src_hw)
+        assert_same(after, eager(ce.raw_serve, frames, src_hw), "chain after set_scales")
+        assert not all(torch.equal(after[k], before[k]) for k in before)
+    finally:
+        ce.set_scales(old)
+    assert_same(ce(frames, src_hw), before, "chain with its scales back")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["float", "chain", "tier"])
+def test_stream_fn_bit_equal_to_b1_forwards(serving_paths, path):
+    _, fn, owner = serving_paths[path]
+    frames, src_hw = frame_set(60, 4)
+    run = owner.stream_fn(4)
+    got = run(frames, src_hw)
+    again = run(*frame_set(61, 4))
+    for i in range(4):
+        ref = eager(fn, frames[i:i + 1], src_hw[i:i + 1])
+        assert_same({k: v[i] for k, v in got.items()}, ref, f"{path} stream frame {i}")
+    assert got["boxes"].shape[:2] == (4, 1) and again["boxes"].shape[:2] == (4, 1)
+    with pytest.raises(ValueError):
+        run(*frame_set(62, 3))
+
+
+# last in this file: it makes two captures fail on purpose
+@pytest.mark.gpu
+@pytest.mark.parametrize("unsafe", ["h2d", "d2h"])
+def test_capture_of_a_host_copy_raises(cuda, unsafe):
+    from tensorrtx_tpu_torch.core.runner import capture_graph
+
+    fns = {"h2d": lambda x: x + torch.tensor(1.0, device=x.device),
+           "d2h": lambda x: x * x.sum().item()}
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(RuntimeError):
+        capture_graph(fns[unsafe], (x,))
+    torch.cuda.synchronize()
+    graph, out = capture_graph(lambda v: v * 2, (x,))
+    graph.replay()
+    assert torch.equal(out, torch.full_like(x, 2.0))
