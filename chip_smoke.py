@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout and holds each
-against its plain PyTorch version, then drives the port's three serving
-paths at full width (YOLO11n, 640²), each by the eager route (one launch
-per op, whose launch counts show the path went through its kernels) and
-as the captured CUDA graphs a user's calls replay:
+against its plain PyTorch version, then drives the port's three det serving
+paths at full width (YOLO11n, 640²) and the four other yolo11 tasks (seg,
+pose, obb, cls) at theirs, each by the eager route (one launch per op,
+whose launch counts show the path went through its kernels) and as the
+captured CUDA graphs a user's calls replay:
 
   env              card, toolchain, nvcc build of every kernel (ptxas report)
   kernel_vs_plain  nms_mask (B = 1, 32) and the int8 convs qconv3x3 /
@@ -34,6 +35,17 @@ as the captured CUDA graphs a user's calls replay:
                    one graph, bit-equal to 16 eager b1 forwards
   f32_parity       the float32 float path on the card against the CPU path
   serving          bf16 float path (`ServingPipeline.fused`) b1/b32, eager
+  task_parity      (seg 640², pose 640², obb 1024², cls 224²; each after the
+                   last) the float32 task engine on the card against the
+                   CPU path: raw outputs and extras (mask coefficients,
+                   proto, keypoints, angle), detections at a rounding-safe
+                   threshold with seg's masks, pose's keypoints and obb's
+                   angle on matched slots; cls's logits and top-5
+  task_serving     the bf16 task path: nms_mask on the path's own
+                   candidates against its plain version (seg, pose; B = 1,
+                   32), b1/b32 by the eager route (1 nms_mask a forward on
+                   seg and pose, none on obb and cls), then its
+                   graph_serving and stream phases
   fq_calibrate     a bf16 `QuantizedEngine` (the float-resident int8 tier)
                    calibrated with entropy on 8 frames
   kernel_vs_plain  quantize_int8 (both standalone forms) at the tier's 80
@@ -69,7 +81,8 @@ as the captured CUDA graphs a user's calls replay:
                    and on the unfused route
   graph_replay_census  in a child process (``--replay-census DIR``, where
                    the profiler records every kernel): each path's b1 graph
-                   replayed under `torch.profiler`, every one of the seven
+                   replayed under `torch.profiler` (the three det paths and
+                   the four task paths), every one of the seven
                    kernels launched the expected number of times per replay
                    and none from Python; these counts are the kernels'
                    ``launches_per_replay`` and decide that each captured
@@ -169,6 +182,28 @@ def _iou64(boxes):
     iou = inter / np.maximum(area[..., :, None] + area[..., None, :] - inter, 1e-30)
     n = iou.shape[-1]
     iou[..., np.arange(n), np.arange(n)] = 0.0
+    return iou
+
+
+def _probiou64(obb):
+    """(N, 5) [cx, cy, w, h, angle] → (N, N) probabilistic IoU in float64 (the
+    port's `ops/nms.probiou_matrix`, the same operations), diagonal 0."""
+    cx, cy, w, h, r = (obb[:, i].astype(np.float64) for i in range(5))
+    eps = 1e-7
+    c, s = np.cos(r), np.sin(r)
+    a, b = w * w / 12 * c * c + h * h / 12 * s * s, w * w / 12 * s * s + h * h / 12 * c * c
+    cc = (w * w / 12 - h * h / 12) * s * c
+    a12, b12, c12 = (v[:, None] + v[None, :] for v in (a, b, cc))
+    dx, dy = cx[:, None] - cx[None, :], cy[:, None] - cy[None, :]
+    det12 = a12 * b12 - c12 * c12
+    t1 = (a12 * dy * dy + b12 * dx * dx) / (det12 + eps)
+    t2 = (c12 * -dx * dy) / (det12 + eps)
+    det1 = np.maximum(a * b - cc * cc, 0.0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        t3 = np.log(det12 / (4 * np.sqrt(det1[:, None] * det1[None, :] + eps * eps) + eps) + eps)
+    bd = np.clip(0.25 * t1 + 0.5 * t2 + 0.5 * t3, eps, 100.0)
+    iou = 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
+    iou[np.arange(len(iou)), np.arange(len(iou))] = 0.0
     return iou
 
 
@@ -353,9 +388,26 @@ def _engine(precision, device, size, **over):
 _ACROSS_OUTPUTS = ("classes", "iou_side", "priority")
 
 
-def _nms_disagreement(raws, confs, t, nms_thresh):
+def _raw_iou(r, bi, sel):
+    """IoU in float64 of the selected anchors of image bi of a raw output."""
+    return _iou64(r["boxes"][bi].cpu().numpy()[sel])
+
+
+def _raw_probiou(r, bi, sel):
+    """obb's probabilistic IoU in float64 of the selected anchors (boxes and
+    the angle, extras[..., 0])."""
+    ob = torch.cat([r["boxes"][bi], r["extras"][bi, :, :1]], -1).cpu().numpy()
+    return _probiou64(ob[sel])
+
+
+def _nms_disagreement(raws, confs, t, nms_thresh, overlap=_raw_iou, within=True):
     """None when NMS over the candidates at or above t must decide alike in
-    every raw output; else why it may not, as a dict. Within each output
+    every raw output; else why it may not, as a dict. ``overlap(raw,
+    image, selection)`` gives the candidates' IoU matrix in float64
+    (`_raw_probiou` for rotated boxes). With ``within`` False the tests
+    within each output are skipped: the outputs need only agree on every
+    decision (for outputs that are each computed the same way by the raw
+    and the served run). Within each output
     first: the same candidates pass in each ("candidates"), no same-class
     pair has an IoU within 1e-4 of the threshold ("iou_at_threshold"), and
     no same-class pair near or above it has scores under 1e-6 apart unless
@@ -372,9 +424,9 @@ def _nms_disagreement(raws, confs, t, nms_thresh):
         sel = confs[0][bi] >= t
         images.append((bi, np.nonzero(sel)[0],
                        [r["cls"][bi].cpu().numpy()[sel] for r in raws],
-                       [_iou64(r["boxes"][bi].cpu().numpy()[sel]) for r in raws],
+                       [overlap(r, bi, sel) for r in raws],
                        [c[bi][sel].astype(np.float64) for c in confs]))
-    for bi, _, cls, ious, scs in images:
+    for bi, _, cls, ious, scs in images if within else ():
         for cl, iou, sc in zip(cls, ious, scs):
             same = cl[:, None] == cl[None, :]
             d = np.abs(sc[:, None] - sc[None, :])
@@ -404,7 +456,7 @@ def _nms_disagreement(raws, confs, t, nms_thresh):
     return None
 
 
-def _safe_conf_thresh(raws, nms_thresh, max_det):
+def _safe_conf_thresh(raws, nms_thresh, max_det, overlap=_raw_iou, within=True):
     """A confidence threshold at which the detections cannot depend on
     float32 rounding: it sits in a gap of ≥ 1e-6 between distinct scores of
     every raw output given, fewer than max_det candidates pass it, and NMS
@@ -417,7 +469,8 @@ def _safe_conf_thresh(raws, nms_thresh, max_det):
     that the tests within each output alone would pick, when it has more
     candidates and the outputs disagree there on a pair, with that pair:
     a second look at what rounding does to NMS on these outputs
-    (`_check_detections` logs it). None when there is no such threshold."""
+    (`_check_detections` logs it). None when there is no such threshold.
+    ``overlap`` and ``within`` as in `_nms_disagreement`."""
     confs = [r["conf"].cpu().numpy() for r in raws]
     values = np.unique(np.concatenate([c.ravel() for c in confs]))[::-1]
     best, witness = None, None
@@ -430,7 +483,7 @@ def _safe_conf_thresh(raws, nms_thresh, max_det):
             break
         if best is not None and n <= best[1]:
             continue
-        why = _nms_disagreement(raws, confs, t, nms_thresh)
+        why = _nms_disagreement(raws, confs, t, nms_thresh, overlap, within)
         if why is None:
             best = (t, n)
         elif why["why"] in _ACROSS_OUTPUTS and (witness is None or n > witness["candidates"]):
@@ -442,22 +495,26 @@ def _safe_conf_thresh(raws, nms_thresh, max_det):
     return best[0], best[1], witness
 
 
-def _match(a, b):
-    """IoU-match detections a to b (same class, greedy by IoU); returns the
-    smallest matched IoU (1.0 when both are empty)."""
+def _match(a, b, overlap=_iou64):
+    """IoU-match detections a to b (same class, greedy by IoU; ``overlap``
+    maps stacked boxes to their IoU matrix, `_probiou64` for obb's boxes
+    with their angle); returns (the smallest matched IoU, the matched
+    (i, j) pairs): (1.0, []) when both are empty, (0.0, []) when their
+    counts differ."""
     if len(a["boxes"]) != len(b["boxes"]):
-        return 0.0
+        return 0.0, []
     if len(a["boxes"]) == 0:
-        return 1.0
-    iou = _iou64(np.concatenate([a["boxes"], b["boxes"]]))[:len(a["boxes"]), len(a["boxes"]):]
+        return 1.0, []
+    iou = overlap(np.concatenate([a["boxes"], b["boxes"]]))[:len(a["boxes"]), len(a["boxes"]):]
     iou = np.where(a["classes"][:, None] == b["classes"][None, :], iou, -1.0)
-    worst, used = 1.0, set()
+    worst, used, pairs = 1.0, set(), []
     for i in np.argsort(-iou.max(1)):
         j = max((j for j in range(iou.shape[1]) if j not in used),
                 key=lambda j: iou[i, j])
         used.add(j)
+        pairs.append((int(i), j))
         worst = min(worst, float(iou[i, j]))
-    return worst
+    return worst, pairs
 
 
 def _check_raw(what, raws, box_px, cls_min, moved_max=1.0, control=False):
@@ -519,7 +576,7 @@ def _check_detections(what, raws, serve_at):
     worst = 1.0
     for i, n in enumerate(counts[1]):
         a, b = ({"boxes": o["boxes"][i][:n], "classes": o["classes"][i][:n]} for o in outs)
-        worst = min(worst, _match(a, b))
+        worst = min(worst, _match(a, b)[0])
     if counts[0] != counts[1] or worst < 0.99:
         raise AssertionError(f"{what} detections differ: counts {counts}, worst IoU {worst}")
     return st | {"conf_thresh": thr, "candidates": n_cand, "counts": counts[0],
@@ -580,13 +637,25 @@ def _eager_serve(fn, device, cfg, bucket=BUCKET):
     return serve
 
 
+def _well_formed(r):
+    """One image's served result: detections (boxes (n, 4), scores, n ≤
+    max_det, all finite) or cls's logits (a finite vector)."""
+    if isinstance(r, np.ndarray):
+        return r.ndim == 1 and np.isfinite(r).all()
+    n = len(r["boxes"])
+    return (r["boxes"].shape == (n, 4) and np.isfinite(r["boxes"]).all()
+            and np.isfinite(r["scores"]).all() and n <= N_CAND)
+
+
 def _timed_serving(phase, device, fused, cfg, per_forward, bucket=BUCKET, n_b1=30, n_b32=5,
-                   **info):
-    """Serve b1 requests and b32 batches by the eager route (`_eager_serve`
-    of the path's device function ``fused``): warm both, set the launch
-    counts to 0, time n_b1 b1 and n_b32 b32 calls with CUDA events (wall),
-    read the counts and check that each forward launched `per_forward` of
-    each kernel and an NMS, and that the detections are well formed. Then
+                   serve=None, **info):
+    """Serve b1 requests and b32 batches by the eager route (``serve``,
+    images → per-image results, by default `_eager_serve` of the path's
+    device function ``fused``): warm both, set the launch counts to 0,
+    time n_b1 b1 and n_b32 b32 calls with CUDA events (wall), read the
+    counts and check that each forward launched `per_forward` of each
+    kernel and, unless `per_forward` counts nms_mask, an NMS, and that the
+    results are well formed (`_well_formed`). Then
     the device time per call: the forward on device-resident frames from
     CUDA events queued behind a GPU sleep (`core/profiler.device_p50_ms`),
     plus the pageable H2D of the frames; and the largest device items of a
@@ -595,7 +664,7 @@ def _timed_serving(phase, device, fused, cfg, per_forward, bucket=BUCKET, n_b1=3
     from tensorrtx_tpu_torch.core.profiler import device_p50_ms
     from tensorrtx_tpu_torch.core.runner import cuda_event_ms
 
-    serve = _eager_serve(fused, device, cfg, bucket)
+    serve = serve or _eager_serve(fused, device, cfg, bucket)
     one, batch32 = _serving_images(bucket)
     serve(one)                               # warm: cuDNN algorithm choice
     serve(batch32)
@@ -614,16 +683,13 @@ def _timed_serving(phase, device, fused, cfg, per_forward, bucket=BUCKET, n_b1=3
     launches = _launches()
     n_fwd = n_b1 + n_b32
     want = {k: v * n_fwd for k, v in per_forward.items()}
+    nms = "nms_mask" not in per_forward
     if device.type == "cuda" and (any(launches[k] != v for k, v in want.items())
-                                  or launches["nms_mask"] < n_fwd):
+                                  or nms and launches["nms_mask"] < n_fwd):
         raise AssertionError(f"{phase}: {n_fwd} forwards launched {launches}, not "
-                             f"{per_forward} and an NMS each")
-    for res in results:
-        for r in res:
-            n = len(r["boxes"])
-            if not (r["boxes"].shape == (n, 4) and np.isfinite(r["boxes"]).all()
-                    and np.isfinite(r["scores"]).all() and n <= N_CAND):
-                raise AssertionError(f"{phase} returned malformed detections")
+                             f"{per_forward}" + (" and an NMS each" if nms else ""))
+    if not all(_well_formed(r) for res in results for r in res):
+        raise AssertionError(f"{phase} returned malformed results")
     timing = {"b1_ms_per_img": float(np.median(b1)),
               "b32_ms_per_img": float(np.median(b32)) / 32}
     if device.type == "cuda":
@@ -642,12 +708,16 @@ def _timed_serving(phase, device, fused, cfg, per_forward, bucket=BUCKET, n_b1=3
                    "device_ms_source": "queued_events (forward) + cuda_events (pageable H2D)"}
         timing |= {f"b{b}_device_idle_share": 1 - timing[f"b{b}_device_ms_per_img"]
                    / timing[f"b{b}_ms_per_img"] for b in (1, 32)}
+        expect = ("nms_mask_kernel", 1) if per_forward.get("nms_mask", 1) else None
         timing |= {f"b{b}_top_device_items": _device_profile(lambda: serve(images), iters,
-                                                             expect=("nms_mask_kernel", 1))[1] or None
+                                                             expect=expect)[1] or None
                    for b, images, iters in ((1, one, 10), (32, batch32, 3))}
+    counts = {"counts_b1": [len(r["boxes"]) for r in results[0]],
+              "counts_b32": [len(r["boxes"]) for r in results[-1]]} \
+        if isinstance(results[0][0], dict) else {}
     log(phase, **info, route="eager", requests_b1=n_b1, batches_b32=n_b32, **timing,
         launches=launches, launches_per_forward={k: v / n_fwd for k, v in launches.items()},
-        counts_b1=[len(r["boxes"]) for r in results[0]])
+        **counts)
     return launches, timing
 
 
@@ -675,7 +745,13 @@ def _graph_frame_sets(b, bucket=BUCKET):
     return sets
 
 
+def _as_dict(out):
+    """A path's result as a dict of tensors: cls's logits as "logits"."""
+    return {"logits": out} if torch.is_tensor(out) else out
+
+
 def _check_bit_equal(what, got, ref):
+    got, ref = _as_dict(got), _as_dict(ref)
     diff = [k for k in ref if not torch.equal(got[k], ref[k])]
     if set(got) != set(ref) or diff:
         raise AssertionError(f"{what}: the replay differs from the eager forward in "
@@ -756,7 +832,7 @@ def phase_stream(path, device, owner, fused, eager, k=16, bucket=BUCKET):
     frames, src_hw = frames_of(synthetic_frames(41, shapes), bucket)
     run = owner.stream_fn(k)
     t0 = time.perf_counter()
-    got = run(frames, src_hw)
+    got = _as_dict(run(frames, src_hw))
     if device.type == "cuda":
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -773,6 +849,291 @@ def phase_stream(path, device, owner, fused, eager, k=16, bucket=BUCKET):
                                                                     for key, v in got.items()},
         capture_and_first_call_s=first_s, **st)
     return st
+
+
+# ---------------------------------------------------------------------------
+# the yolo11 tasks: seg, pose, obb, cls
+# ---------------------------------------------------------------------------
+
+# each task path at its published input size and class count (the JAX
+# package's Yolo11Cfg: pose 1 class and 17 keypoints, obb 15 classes at
+# 1024², cls 1000 classes at 224²), scale n, max_det N_CAND
+TASKS = {"seg": (640, 80), "pose": (640, 1), "obb": (1024, 15), "cls": (224, 1000)}
+# the task paths whose forward runs the nms_mask kernel (obb's rotated keep
+# mask is probiou in torch ops, as in the JAX package; cls has no NMS)
+TASK_NMS = {"seg": 1, "pose": 1, "obb": 0, "cls": 0}
+# card against CPU, both float32 with TF32 off: max |Δ| bars of the task
+# outputs beyond `_check_raw`'s (boxes 0.01 px, conf 1e-4, classes 99.9 %)
+TASK_BARS = {"seg_coeffs": 1e-4, "proto_rel": 1e-4, "masks": 1e-4, "kpt_px": 1e-2,
+             "kpt_conf": 1e-4, "angle": 1e-5, "logits_rel": 1e-4}
+# a pose keypoint whose confidence lies within KPT_EPS[0] of its threshold,
+# or whose (x, y) lies within KPT_EPS[1] px of an edge of its box, may be
+# gated on one device and not on the other
+KPT_EPS = (1e-5, 1e-2)
+
+
+def _task_engine(task, precision, device, **over):
+    size, nc = TASKS[task]
+    return _engine(precision, device, size, task=task, num_classes=nc, **over)
+
+
+def _keypoints(got, ref, boxes_g, boxes_r, kpt_thresh=0.5):
+    """Decoded keypoints (..., 3K) on the card (got) against the CPU (ref):
+    the max |Δ| of x, y and conf where neither is gated (−1), and the
+    keypoints gated on one device only, each of which must lie within
+    KPT_EPS of a threshold on the other (raises otherwise)."""
+    g = got.reshape(*got.shape[:-1], -1, 3).astype(np.float64)
+    r = ref.reshape(*ref.shape[:-1], -1, 3).astype(np.float64)
+    gg, gr = g[..., 2] == -1, r[..., 2] == -1
+    both = ~gg & ~gr
+    st = {"kpt_xy_max_abs_err_px": float(np.abs(g[both][:, :2] - r[both][:, :2]).max(initial=0)),
+          "kpt_conf_max_abs_err": float(np.abs(g[both][:, 2] - r[both][:, 2]).max(initial=0)),
+          "kpts_ungated": int(both.sum()), "kpts_gated_apart": 0}
+    for side, apart, bx in ((g, gr & ~gg, boxes_g), (r, gg & ~gr, boxes_r)):
+        for i in np.argwhere(apart):
+            x, y, c = side[tuple(i)]
+            b = bx[tuple(i[:-1])].astype(np.float64)
+            edge = min(x - b[0], b[2] - x, y - b[1], b[3] - y)
+            if not (c - kpt_thresh < KPT_EPS[0] or edge < KPT_EPS[1]):
+                raise AssertionError(f"keypoint {i.tolist()} gated on one device only, "
+                                     f"conf {c}, {edge} px inside its box")
+            st["kpts_gated_apart"] += 1
+    if st["kpt_xy_max_abs_err_px"] > TASK_BARS["kpt_px"] \
+            or st["kpt_conf_max_abs_err"] > TASK_BARS["kpt_conf"]:
+        raise AssertionError(f"pose keypoints differ: {st}")
+    return st
+
+
+def _check_extras(task, raws):
+    """The raw task outputs beyond boxes, conf and classes, card (raws[0])
+    against CPU (raws[1]): seg's mask coefficients and proto, pose's
+    keypoints (`_keypoints`), obb's angle, within TASK_BARS."""
+    g, c = ({k: v.float().cpu().numpy() for k, v in r.items()} for r in raws)
+    if task == "pose":
+        return _keypoints(g["extras"], c["extras"], g["boxes"], c["boxes"])
+    err = float(np.abs(g["extras"] - c["extras"]).max())
+    st = {"extras_max_abs_err": err}
+    bad = err > TASK_BARS["angle" if task == "obb" else "seg_coeffs"]
+    if task == "seg":
+        st["proto_max_abs_err"] = float(np.abs(g["proto"] - c["proto"]).max())
+        st["proto_max_abs"] = float(np.abs(c["proto"]).max())
+        bad |= st["proto_max_abs_err"] > TASK_BARS["proto_rel"] * (1 + st["proto_max_abs"])
+    if bad:
+        raise AssertionError(f"{task} raw extras differ: {st}")
+    return st
+
+
+def _geometry(task, d, i, n):
+    """The first n detections of image i as `_match` takes them: obb's boxes
+    carry their angle (extras[..., 0]) as a fifth column."""
+    bx = d["boxes"][i][:n]
+    if task == "obb":
+        bx = np.concatenate([bx, d["extras"][i][:n, :1]], -1)
+    return {"boxes": bx, "classes": d["classes"][i][:n]}
+
+
+def _probiou_near_threshold(raw, conf_thresh=0.25):
+    """The first same-class pair among an obb raw output's NMS slots (the
+    top N_CAND candidates at conf_thresh) whose probiou in float64 lies
+    within 1e-4 of NMS_THRESH, as a dict; None when there is none."""
+    conf = raw["conf"].cpu().numpy()
+    for bi in range(conf.shape[0]):
+        top = np.argsort(-conf[bi], kind="stable")[:N_CAND]
+        top = top[conf[bi][top] >= conf_thresh]
+        iou = _raw_probiou(raw, bi, top)
+        cls = raw["cls"][bi].cpu().numpy()[top]
+        near = (cls[:, None] == cls[None, :]) & (np.abs(iou - NMS_THRESH) < 1e-4)
+        if near.any():
+            i, j = np.argwhere(near)[0]
+            return {"why": "iou_at_threshold", "image": bi, "anchors": [int(top[i]), int(top[j])],
+                    "probiou": float(iou[i, j])}
+    return None
+
+
+def _check_task_detections(task, raws, serve_at):
+    """A task's detections on the card against the CPU, as
+    `_check_detections` holds det's: `select_and_nms` (with the extras;
+    obb's rotated mask) at conf 0.25 on the card's own raw outputs, on
+    the card and on the CPU, bit-equal (obb: where no candidate pair lies
+    within 1e-4 of the threshold, since probiou's log, sqrt and exp may
+    round apart on the two devices); then the end-to-end detections
+    (`_compare_served`) at the thresholds `_safe_conf_thresh` finds
+    (probiou for obb): one safe within each output and across them, where
+    there is one, and one safe across them only."""
+    from tensorrtx_tpu_torch.ops.nms import select_and_nms
+
+    g = raws[0]
+    overlap = _raw_probiou if task == "obb" else _raw_iou
+    args = (g["boxes"], g["conf"], g["cls"], 0.25, NMS_THRESH, N_CAND)
+    kw = {"extras": g["extras"], "obb": task == "obb"}
+    on_dev = select_and_nms(*args, **kw).as_dict()
+    on_cpu = select_and_nms(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                            extras=g["extras"].cpu(), obb=kw["obb"]).as_dict()
+    why = _probiou_near_threshold(g) if task == "obb" else None
+    if why is None:
+        for k in on_cpu:
+            if not torch.equal(on_dev[k].cpu(), on_cpu[k]):
+                raise AssertionError(f"{task}: select_and_nms on the card vs the CPU: "
+                                     f"field {k} differs")
+    st = {"nms_on_same_candidates": "bit-equal" if why is None else {"not compared": why},
+          "nms_count_at_0_25": on_cpu["count"].tolist()}
+    # two thresholds: one safe within each output and across them (none
+    # where same-class overlapping scores lie under 1e-6 apart at every
+    # threshold, each device's order of them resting on its last bits, as
+    # on obb with random weights), and one at which the two outputs need
+    # only decide every pair alike, which admits more candidates
+    found = {}
+    try:
+        found["within_and_across"] = _safe_conf_thresh(raws, NMS_THRESH, N_CAND, overlap)
+    except AssertionError:
+        st["within_and_across"] = "no such threshold"
+    found["across_only"] = _safe_conf_thresh(raws, NMS_THRESH, N_CAND, overlap, within=False)
+    done = {}
+    for rule, (thr, n_cand, witness) in found.items():
+        if thr not in done:
+            done[thr] = _compare_served(task, serve_at(thr))
+        st[rule] = {"conf_thresh": thr, "candidates": n_cand, **done[thr]}
+        if witness is not None:
+            st[rule]["rounding_witness"] = witness
+    return st
+
+
+def _compare_served(task, served):
+    """The end-to-end detections of the card and the CPU (``served``, two
+    detection dicts): counts equal, matched boxes' IoU ≥ 0.99 (obb:
+    probiou), and on the matched slots seg's masks, pose's keypoints and
+    obb's angle within TASK_BARS."""
+    outs = [{k: v.float().cpu().numpy() for k, v in o.items()} for o in served]
+    counts = [o["count"].astype(int).tolist() for o in outs]
+    if counts[0] != counts[1]:
+        raise AssertionError(f"{task} detections differ: counts {counts}")
+    worst, err = 1.0, {}
+    for i, n in enumerate(counts[1]):
+        w, pairs = _match(_geometry(task, outs[0], i, n), _geometry(task, outs[1], i, n),
+                          _probiou64 if task == "obb" else _iou64)
+        worst = min(worst, w)
+        if not pairs:
+            continue
+        a, b = (np.array([p[k] for p in pairs]) for k in (0, 1))
+        if task == "seg":
+            e = float(np.abs(outs[0]["masks"][i][a] - outs[1]["masks"][i][b]).max())
+            err["masks_max_abs_err"] = max(err.get("masks_max_abs_err", 0.0), e)
+        elif task == "obb":
+            e = float(np.abs(outs[0]["extras"][i][a] - outs[1]["extras"][i][b]).max())
+            err["angle_max_abs_err"] = max(err.get("angle_max_abs_err", 0.0), e)
+        else:
+            kp = _keypoints(outs[0]["extras"][i][a], outs[1]["extras"][i][b],
+                            outs[0]["boxes"][i][a], outs[1]["boxes"][i][b])
+            for k, v in kp.items():
+                err[f"dets_{k}"] = max(err.get(f"dets_{k}", 0), v) if "err" in k \
+                    else err.get(f"dets_{k}", 0) + v
+    if worst < 0.99 or err.get("masks_max_abs_err", 0) > TASK_BARS["masks"] \
+            or err.get("angle_max_abs_err", 0) > TASK_BARS["angle"]:
+        raise AssertionError(f"{task} detections differ: worst IoU {worst}, {err}")
+    return {"counts": counts[0], "worst_iou": worst, **err}
+
+
+def phase_task_parity(task, device, bucket=BUCKET):
+    """float32 ``task`` at full width on the card against the port's CPU
+    path (TF32 off), on two frames of different true sizes: the raw
+    outputs (`_check_raw` with det's bars, `_check_extras`) and the
+    detections (`_check_task_detections`); cls's logits within
+    TASK_BARS["logits_rel"]·(1 + max |logit|), and its top-5 classes equal
+    where each of the six largest logits is more than twice the measured
+    error from the next."""
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+
+    cpu = torch.device("cpu")
+    shapes = [(bucket[0] * 3 // 4, bucket[1]), (bucket[0], bucket[1] * 2 // 3)]
+    frames, src_hw = frames_of(synthetic_frames(1, shapes), bucket)
+
+    def run(d, **over):
+        pipe = ServingPipeline(_task_engine(task, "fp32", d, **over), *bucket)
+        return _eager(pipe.fused, frames, src_hw, d)
+
+    if task == "cls":
+        g, c = (run(d).float().cpu().numpy() for d in (device, cpu))
+        err = float(np.abs(g - c).max())
+        if not (g.shape == (2, TASKS[task][1]) and np.isfinite(g).all()) \
+                or err > TASK_BARS["logits_rel"] * (1 + np.abs(c).max()):
+            raise AssertionError(f"cls logits on {device} vs cpu: shape {g.shape}, "
+                                 f"max abs err {err}")
+        top = np.sort(c, -1)[:, ::-1][:, :6]
+        clear = (top[:, :5] - top[:, 1:6] > 2 * err).all(-1)
+        same = [bool(np.array_equal(np.argsort(-g[i])[:5], np.argsort(-c[i])[:5]))
+                for i in range(2)]
+        if not all(s for s, ok in zip(same, clear) if ok):
+            raise AssertionError(f"cls top-5 differs where its margins are clear: {same}")
+        log("task_parity", path=task, size=TASKS[task][0], logits_max_abs_err=err,
+            logits_max_abs=float(np.abs(c).max()), top5_compared=clear.tolist(),
+            top5_equal=same)
+        return
+    raws = [run(d, postprocess="raw") for d in (device, cpu)]
+    st = _check_raw(task, raws, 1e-2, 0.999) | _check_extras(task, raws)
+    st |= _check_task_detections(task, raws, lambda thr: [run(d, conf_thresh=thr)
+                                                          for d in (device, cpu)])
+    log("task_parity", path=task, size=TASKS[task][0], frames=[list(x) for x in shapes], **st)
+
+
+def _nms_on_path(fused, device, bucket=BUCKET):
+    """nms_mask at the shapes a path gives it: the kernel's inputs caught in
+    one eager forward of the b1 request and one of the b32 batch
+    (`_serving_images`), then the kernel on them against its plain version,
+    on the card and on the CPU: bit-equal keep masks."""
+    from tensorrtx_tpu_torch.ops.cuda import nms_mask as kern
+
+    out = {}
+    orig = kern.keep_mask
+    for images in _serving_images(bucket):
+        seen = []
+        kern.keep_mask = lambda *a: seen.append(a) or orig(*a)
+        try:
+            _eager(fused, *frames_of(images, bucket), device)
+        finally:
+            kern.keep_mask = orig
+        (args,) = seen
+        boxes, scores, classes, thresh = args
+        keep = kern.keep_mask(*args)
+        plain = kern.keep_mask_plain(*args)
+        plain_cpu = kern.keep_mask_plain(boxes.cpu(), scores.cpu(), classes.cpu(), thresh)
+        if not (torch.equal(keep, plain) and torch.equal(keep.cpu(), plain_cpu)):
+            raise AssertionError(f"nms_mask disagrees with its plain version on the path's "
+                                 f"B={len(images)} candidates")
+        out[f"b{len(images)}"] = {"n": int(scores.shape[-1]), "valid": int((scores > 0).sum()),
+                                  "kept": int(keep.sum()), "bit_equal": True}
+    return out
+
+
+def phase_task_serving(task, device, bucket=BUCKET):
+    """One task path as a user serves it: a bf16 engine at full width (scale
+    n, `RandomWeightMap(seed=0)`, conf 0.25, max_det N_CAND) in a
+    `ServingPipeline`. nms_mask on the path's candidates (`_nms_on_path`,
+    seg and pose); the eager route timed with its launches checked
+    (`_timed_serving`: TASK_NMS[task] nms_mask a forward); the CUDA graphs
+    (`phase_graph_serving`: b1/b32 replays bit-equal to eager, timed
+    through `detect_images`, cls through ``__call__``); `stream_fn(16)`
+    (`phase_stream`). Returns the eager run's launches, the nms_mask check,
+    and the graphs' timings."""
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+
+    pipe = ServingPipeline(_task_engine(task, "bf16", device, conf_thresh=0.25), *bucket)
+    nms = _nms_on_path(pipe.fused, device, bucket) if TASK_NMS[task] else None
+    info = {"path": task, "precision": "bf16", "size": TASKS[task][0]}
+    if task == "cls":
+        def serve(images):
+            return list(pipe.fused(*(torch.from_numpy(a).to(device)
+                                     for a in frames_of(images, bucket))).float().cpu().numpy())
+
+        def serve_graph(images):
+            return list(pipe(*frames_of(images, bucket)).float().cpu().numpy())
+    else:
+        serve, serve_graph = None, pipe.detect_images
+    launches, eager = _timed_serving("task_serving", device, pipe.fused, pipe.engine.cfg,
+                                     {"nms_mask": TASK_NMS[task]}, bucket, serve=serve, **info)
+    graph = phase_graph_serving(task, device, pipe, pipe.fused, pipe.graphs, serve_graph, eager,
+                                bucket)
+    phase_stream(task, device, pipe, pipe.fused, eager, bucket=bucket)
+    return launches, nms, graph
 
 
 # ---------------------------------------------------------------------------
@@ -1891,13 +2252,15 @@ KERNEL_NAMES = {"nms_mask": "nms_mask_kernel", "qconv3x3": "qconv3x3_mma_kernel"
                 "conv1x1_planar": "conv1x1_planar_kernel"}
 PER_REPLAY = {"float": {"nms_mask": 1},
               "chain": {"nms_mask": 1, "qconv3x3": 31, "qconv1x1": 37},
-              "tier": {"nms_mask": 1, "qconv3x3": 35, "qconv1x1": 45, "quantize_int8": 35}}
+              "tier": {"nms_mask": 1, "qconv3x3": 35, "qconv1x1": 45, "quantize_int8": 35},
+              **{task: {"nms_mask": n} if n else {} for task, n in TASK_NMS.items()}}
 CENSUS_REPLAYS = 5
 
 
 def _census_paths(device, chain_scales, tier_scales):
-    """The three serving paths at full size (bf16, conf 0.25), each as the
-    call a user makes: name → (``__call__``, its graph runner)."""
+    """The three det serving paths and the four task paths at full size
+    (bf16, conf 0.25), each as the call a user makes: name → its
+    ``__call__``."""
     from tensorrtx_tpu_torch.core.runner import ServingPipeline
 
     pipe = ServingPipeline(_engine("bf16", device, SIZE, conf_thresh=0.25), *BUCKET)
@@ -1905,7 +2268,9 @@ def _census_paths(device, chain_scales, tier_scales):
     ce.set_scales(chain_scales)
     tier = ServingPipeline(_quantized("bf16", device, SIZE, tier_scales, conf_thresh=0.25),
                            *BUCKET)
-    return {"float": pipe, "chain": ce, "tier": tier}
+    tasks = {t: ServingPipeline(_task_engine(t, "bf16", device, conf_thresh=0.25), *BUCKET)
+             for t in TASKS}
+    return {"float": pipe, "chain": ce, "tier": tier, **tasks}
 
 
 def census_main(scales_dir):
@@ -1913,9 +2278,10 @@ def census_main(scales_dir):
     early in a process `torch.profiler` records every kernel. Each path
     captures its b1 graph, sets the launch counts to 0 and serves
     CENSUS_REPLAYS b1 requests under the profiler; a window counts only if
-    it shows exactly PER_REPLAY launches of each of the seven kernels per
-    replay (0 for a kernel the path does not run), up to three windows a
-    path (`core/profiler.kernel_table`), and the wrappers' launch counters
+    it recorded device work and shows exactly PER_REPLAY launches of each
+    of the seven kernels per replay (0 for a kernel the path does not run:
+    none on obb and cls), up to three windows a path
+    (`core/profiler.kernel_table`), and the wrappers' launch counters
     must stay at 0 (no launch from Python: every kernel came from a
     replay). Prints one JSON line with each path's launches per replay."""
     from tensorrtx_tpu_torch.core.profiler import kernel_table, launches
@@ -1936,6 +2302,7 @@ def census_main(scales_dir):
             raise AssertionError(f"replay census ({name}): no window of {CENSUS_REPLAYS} replays "
                                  f"showed {want}, or Python launched {counted}")
         out[name] = {"replays": CENSUS_REPLAYS, "python_launches": 0,
+                     "device_launches_per_replay": sum(n for _, _, n in rows) / CENSUS_REPLAYS,
                      "launches_per_replay": {k: launches(rows, part) // CENSUS_REPLAYS
                                              for k, part in KERNEL_NAMES.items()},
                      "kernel_ms_per_replay": {k: sum(ms for key, ms, _ in rows if part in key)
@@ -1997,6 +2364,13 @@ def main():
     phase_stream("float", device, pipe, pipe.fused, float_timing)
     del pipe
 
+    # the yolo11 tasks, each path at full width
+    tasks = {}
+    for task in TASKS:
+        phase_task_parity(task, device)
+        tasks[task] = phase_task_serving(task, device)
+        torch.cuda.empty_cache()
+
     # the float-resident int8 tier and the standalone kernels
     qe, scales, cal_s = _calibrated("bf16", device, SIZE, "entropy", conf_thresh=0.25)
     log("fq_calibrate", method="entropy", frames=CAL_FRAMES, scales=len(scales),
@@ -2022,7 +2396,8 @@ def main():
     # wrappers count, must launch them too
     missing = [f"{k} ({path} graph)" for path, want in PER_REPLAY.items() for k in want
                if not per_replay[path][k]]
-    eager = {"float": launches, "chain": int8_launches, "tier": fq_launches}
+    eager = {"float": launches, "chain": int8_launches, "tier": fq_launches,
+             **{t: run[0] for t, run in tasks.items()}}
     missing += [f"{k} ({path} eager)" for path, want in PER_REPLAY.items() for k in want
                 if not eager[path]["qconv1x1_fq" if (path, k) == ("tier", "qconv1x1") else k]]
     missing += [f"{k} (standalone ops)" for k in ("quantize_int8", "quantize_int8_stochastic",
@@ -2049,6 +2424,8 @@ def main():
         "ms_b32": nms[32]["ms"], "plain_ms_b32": nms[32]["plain_ms"],
         "bound_ms_b32": nms[32]["bound_ms"],
         "ms_source": _source(nms[1]["ms_source"], nms[32]["ms_source"]),
+        "launches_task_paths": {t: run[0]["nms_mask"] for t, run in tasks.items()},
+        "task_paths_bit_equal": {t: run[1] for t, run in tasks.items() if run[1]},
     }]
     designs = {
         "qconv3x3": "implicit GEMM on the tensor cores (mma.sync m16n8k32 s8, ldmatrix fragments), "
@@ -2195,12 +2572,16 @@ def main():
     eager_phase = {"nms_mask": "serving", "qconv3x3": "int8_serving", "qconv1x1": "int8_serving",
                    "quantize_int8": "fq_serving"}
     for k in kernels:
-        k["launches_per_replay"] = {p: n[k["name"]] for p, n in per_replay.items() if n[k["name"]]}
-        k["in_graphs"] = list(k["launches_per_replay"])
+        # nms_mask: every path's count, the task paths' zeros too
+        k["launches_per_replay"] = {p: n[k["name"]] for p, n in per_replay.items()
+                                    if n[k["name"]] or (k["name"] == "nms_mask" and p in TASKS)}
+        k["in_graphs"] = [p for p, n in k["launches_per_replay"].items() if n]
         phase = eager_phase.get(k["name"])
         k["launches_from"] = (f"the wrappers' counters over the eager forwards of {phase} (a "
                               "replay adds nothing to them)" if phase
                               else "the wrapper's counter over standalone_ops")
+    kernels[0]["launches_from"] += ("; launches_task_paths: over the eager forwards of "
+                                    "task_serving, per path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,16 @@ The port's (the same commands as `python -m tensorrtx_tpu.cli`, for the
 models this package serves):
     python -m tensorrtx_tpu_torch.cli build yolo11 -w y.wts -o y.engine \
         --precision bf16 --set scale=n [--device cuda]
+    python -m tensorrtx_tpu_torch.cli build yolo11 -w y-seg.wts -o y-seg.engine \
+        --set task=seg          (task=pose num_classes=1, task=obb num_classes=15
+                                 input_h=1024 input_w=1024, task=cls
+                                 num_classes=1000 input_h=224 input_w=224)
     python -m tensorrtx_tpu_torch.cli build yolo11 -w y.wts -o y.int8 \
         --int8-calib-dir CALIB_DIR [--calib-method entropy] [--calib-images 64]
     python -m tensorrtx_tpu_torch.cli run y.engine IMAGE_DIR [--batch 8] [--device cuda]
+        (det, seg, pose and obb engines print each image's boxes, scores and
+        classes, as the JAX package's `run` does; a cls engine has none and
+        raises)
     python -m tensorrtx_tpu_torch.cli list
 """
 
@@ -46,10 +53,12 @@ def cmd_build(args):
         # calibrate, save the engine with its scale table
         import torch
 
-        from tensorrtx_tpu_torch.core.quant import QuantizedEngine, calibrate
+        from tensorrtx_tpu_torch.core.quant import (QuantizedEngine, calibrate,
+                                                    check_int8_task)
         from tensorrtx_tpu_torch.core.runner import load_image, read_files_in_dir
         from tensorrtx_tpu_torch.ops.preprocess import letterbox
 
+        check_int8_task(eng)
         h, w, _ = eng.model.input_shape(eng.cfg)
         files = read_files_in_dir(args.int8_calib_dir)[:args.calib_images]
         if not files:

@@ -91,5 +91,15 @@ class WeightMap:
         b = shift if p["b"] is None else p["b"] * scale + shift
         return ConvParams(w=w, b=b)
 
+    def linear(self, name: str, out_f: int, in_f: int, bias: bool = True) -> dict:
+        """torch Linear: weight (out, in), stored transposed (in, out) as the
+        JAX package stores it; optional bias."""
+        w = self.tensor(f"{name}.weight", (out_f, in_f)).T.copy()
+        b = self.tensor(f"{name}.bias", (out_f,)) if bias and f"{name}.bias" in self.raw else None
+        return {"w": w, "b": b}
+
+    def vec(self, name: str, n: int) -> np.ndarray:
+        return self.tensor(name, (n,))
+
     def unused(self):
         return sorted(set(self.raw) - self.used)

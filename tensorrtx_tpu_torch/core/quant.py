@@ -14,6 +14,9 @@ an engine dir crosses between the packages).
   entropy (TensorRT-style KL), percentile or absmax calibration.
 - Int8-resident tier (`ChainedInt8Engine`): activations stay int8 between
   the convs of a chain mirror (`ops/qchain.py`); absmax calibration.
+
+Both tiers serve yolo11's det task (`check_int8_task`): the other tasks'
+extra convs have no slot order held against the JAX package's scale table.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ from tensorrtx_tpu_torch.ops.preprocess import letterbox_batch
 from tensorrtx_tpu_torch.ops.qchain import ChainCtx, quantize_chain_weights
 from tensorrtx_tpu_torch.ops.quant_ctx import ConvSlot, Taps
 
-__all__ = ["calibrate", "entropy_scale", "percentile_scale", "save_scale_cache",
-           "load_scale_cache", "QuantizedEngine", "ChainedInt8Engine", "weight_scales",
-           "conv_weights", "HIST_BINS", "QUANT_BINS"]
+__all__ = ["check_int8_task", "calibrate", "entropy_scale", "percentile_scale",
+           "save_scale_cache", "load_scale_cache", "QuantizedEngine", "ChainedInt8Engine",
+           "weight_scales", "conv_weights", "HIST_BINS", "QUANT_BINS"]
 
 HIST_BINS = 2048
 QUANT_BINS = 128
@@ -132,6 +135,18 @@ def weight_scales(engine: Engine,
                        1e-8) for w in ws]
 
 
+def check_int8_task(engine: Engine) -> None:
+    """Refuse an engine whose task is not det. A seg, pose or obb network
+    has convs (cv4, proto) whose place among the int8 slots was never held
+    against the JAX package's scale table, so a table from either package
+    could load onto the wrong convs without an error; cls has no detection
+    tail."""
+    task = getattr(engine.cfg, "task", "det")
+    if task != "det":
+        raise NotImplementedError(f"{engine.name}: the int8 tiers serve the det task, "
+                                  f"not {task!r}")
+
+
 def calibrate(engine: Engine, batches: Iterable, method: str = "entropy") -> np.ndarray:
     """Run calibration batches through the float32 graph; return per-conv
     input scales (trace order, one per conv, depthwise included).
@@ -139,6 +154,7 @@ def calibrate(engine: Engine, batches: Iterable, method: str = "entropy") -> np.
     reference streams them (calibrator.cpp:33-56). Two passes, as in the
     JAX package: |x|max of every conv input over all batches, then (entropy
     and percentile) 2048-bin histograms of |x| over [0, |x|max]."""
+    check_int8_task(engine)
     if method not in METHODS:
         raise ValueError(f"unknown calibration method {method!r}; one of {METHODS}")
     batches = list(batches)
@@ -217,6 +233,7 @@ class QuantizedEngine:
     """
 
     def __init__(self, engine: Engine, act_scales):
+        check_int8_task(engine)
         if engine.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"the int8 tier serves fp32 and bf16 engines; "
                                       f"{engine.precision} has no int8 float exit")
@@ -304,6 +321,7 @@ class ChainedInt8Engine:
 
     def __init__(self, engine: Engine, bgr_to_rgb: bool = False, fold: int = 2,
                  enter: str = ChainCtx.DEFAULT_ENTER, dtype=torch.bfloat16):
+        check_int8_task(engine)
         model, cfg = engine.model, engine.cfg
         chain = model.apply_chain
         if chain is None or not chain.supports(cfg):

@@ -93,21 +93,24 @@ class _Staged:
         self.staged.synchronize()
         return self.frames_np, self.hw_np
 
-    def launch(self) -> dict:
+    def launch(self):
         """Copy the pinned buffers to the card (asynchronously, on the
-        current stream), replay the graph, and return copies of its outputs,
-        which the next replay does not overwrite."""
+        current stream), replay the graph, and return copies of its outputs
+        (a dict of tensors, or cls's logits tensor), which the next replay
+        does not overwrite."""
         self.frames.copy_(self.host_frames, non_blocking=True)
         self.src_hw.copy_(self.host_hw, non_blocking=True)
         self.staged.record()
         self.graph.replay()
+        if torch.is_tensor(self.out):
+            return self.out.clone()
         return {k: v.clone() for k, v in self.out.items()}
 
 
 class GraphRunner:
     """``fn(frames, src_hw)`` of device tensors (uint8 (B, H, W, 3), int32
-    (B, 2)) → a dict of device tensors, served on the card as one CUDA
-    graph per frames shape: the first call for a shape warms fn and
+    (B, 2)) → a dict of device tensors or one tensor, served on the card as
+    one CUDA graph per frames shape: the first call for a shape warms fn and
     captures it (`capture_graph`); every call stages the frames through
     that shape's pinned buffers and replays. The graphs share one memory
     pool, which is safe because replays run one after another on the
@@ -133,7 +136,7 @@ class GraphRunner:
             self._staged[shape] = st
         return st
 
-    def run(self, shape, fill: Callable) -> dict:
+    def run(self, shape, fill: Callable):
         """One replay for frames of ``shape``: ``fill(frames, src_hw)``
         writes the call's inputs into the numpy views of that shape's
         pinned buffers, which are then copied to the card."""
@@ -142,7 +145,7 @@ class GraphRunner:
         with torch.cuda.device(self.device):
             return st.launch()
 
-    def __call__(self, frames, src_hw) -> dict:
+    def __call__(self, frames, src_hw):
         return self.run(frames.shape, _copy_in(frames, src_hw))
 
 
@@ -155,7 +158,7 @@ def _copy_in(frames, src_hw) -> Callable:
 
 
 def serve_filled(fn: Callable, graphs: Optional[GraphRunner], device: torch.device, shape,
-                 fill: Callable) -> dict:
+                 fill: Callable):
     """One call of the device function fn on frames of ``shape`` (B, H, W,
     3) uint8 and their src_hw (B, 2), which ``fill(frames, src_hw)`` writes
     into numpy buffers: on the card the pinned staging buffers of a replay
@@ -170,7 +173,7 @@ def serve_filled(fn: Callable, graphs: Optional[GraphRunner], device: torch.devi
 
 
 def serve(fn: Callable, graphs: Optional[GraphRunner], device: torch.device, frames,
-          src_hw=None) -> dict:
+          src_hw=None):
     """One call of fn on host frames (B, H, W, 3) uint8 and src_hw (B, 2)
     (None: each frame's full (H, W)) by `serve_filled`."""
     shape = check_frames(frames.shape)
@@ -181,13 +184,15 @@ def serve(fn: Callable, graphs: Optional[GraphRunner], device: torch.device, fra
 
 def stream_runner(fn: Callable, k: int, device: torch.device) -> Callable:
     """``run(frames (k, H, W, 3) uint8, src_hw (k, 2))`` → fn's outputs for
-    each frame at batch 1, stacked (leaves (k, 1, ...)), as the JAX
-    package's `stream_fn` scan stacks them. On the card the k calls are one
+    each frame at batch 1, stacked (leaves (k, 1, ...); cls's logits
+    (k, 1, nc)), as the JAX package's `stream_fn` scan stacks them. On the card the k calls are one
     CUDA graph (a `GraphRunner`); elsewhere they run eagerly."""
     def body(frames, src_hw):
         if frames.shape[0] != k:
             raise ValueError(f"this stream function takes {k} frames, got {frames.shape[0]}")
         outs = [fn(frames[i:i + 1], src_hw[i:i + 1]) for i in range(k)]
+        if torch.is_tensor(outs[0]):
+            return torch.stack(outs)
         return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
     if device.type == "cuda":
@@ -217,19 +222,20 @@ class ServingPipeline:
         self.graphs = (GraphRunner(self.fused, engine.device)
                        if engine.device.type == "cuda" else None)
 
-    def fused(self, frames: torch.Tensor, src_hw: torch.Tensor) -> dict:
+    def fused(self, frames: torch.Tensor, src_hw: torch.Tensor):
         """The device side: frames (B, H, W, 3) uint8 and src_hw (B, 2) int32
         on the engine's device → letterbox → the engine's module → the
-        detection dict (the JAX package's traceable ``_fused``)."""
+        detection dict, or cls's logits (the JAX package's traceable
+        ``_fused``)."""
         eng = self.engine
         with torch.inference_mode():
             x = letterbox_batch(frames, src_hw, eng.cfg.input_h, eng.cfg.input_w,
                                 bgr_to_rgb=self.bgr_to_rgb)
             return eng.module(x.to(eng.dtype))
 
-    def __call__(self, frames, src_hw=None) -> dict:
+    def __call__(self, frames, src_hw=None):
         """frames (B, H, W, 3) uint8, src_hw (B, 2) [h, w] → the detection
-        dict of device tensors."""
+        dict of device tensors (cls: the (B, num_classes) logits)."""
         return serve(self.fused, self.graphs, self.engine.device, frames, src_hw)
 
     def stream_fn(self, k: int) -> Callable:
@@ -252,7 +258,11 @@ class ServingPipeline:
         detections mapped back to original pixel coords. Each image is
         written straight into its frame of the staging buffer (on the card
         the pinned one); the pixels of a frame outside its image keep
-        whatever they held, which the letterbox never reads."""
+        whatever they held, which the letterbox never reads. A cls engine
+        has no detections: serve it by ``__call__``."""
+        if self.engine.cfg.task == "cls":
+            raise ValueError("detect_images serves detection tasks; a cls engine returns "
+                             "logits: call the pipeline instead")
         src_hw = np.array([im.shape[:2] for im in images], np.int32).reshape(-1, 2)
 
         def fill(frames, hw):
@@ -267,8 +277,10 @@ class ServingPipeline:
 
 def present_detections(out: dict, src_hw, cfg) -> List[dict]:
     """Detection buffer (boxes/scores/classes/count) → per-image host dicts
-    of numpy arrays, boxes mapped back to original pixel coords."""
-    d = {k: v.cpu() for k, v in out.items()}
+    of numpy arrays, boxes mapped back to original pixel coords. Boxes,
+    scores and classes only, as the JAX package presents them; obb's
+    (cx, cy, w, h) go through the same xyxy mapping there too."""
+    d = {k: out[k].cpu() for k in ("boxes", "scores", "classes", "count")}
     results = []
     for i in range(d["count"].shape[0]):
         n = int(d["count"][i])

@@ -153,6 +153,19 @@ class Conv(nn.Module):
         return ops.silu(y) if self.act else y
 
 
+class Linear(nn.Module):
+    """x @ w (+ b) with ``w`` stored (in, out), as the JAX tree keeps it
+    (the cls head's ``m10_linear``)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.register_buffer("w", p["w"])
+        self.register_buffer("b", p["b"])
+
+    def forward(self, x):
+        return ops.linear(x, self.w, self.b)
+
+
 class Bottleneck(nn.Module):
     def __init__(self, p, shortcut: bool = True):
         super().__init__()

@@ -1,13 +1,16 @@
-"""YOLO11 detection (task="det") — the port's main path.
+"""YOLO11 det, seg, pose, obb and cls — the port's main path.
 
-Reference: yolo11/src/model.cpp (buildEngineYolo11Det:138),
-yolo11/src/block.cpp, yolo11/plugin/yololayer.cu. The JAX counterpart is
-tensorrtx_tpu/models/yolo11.py (`apply` → `_apply_from_feats3`, det branch).
+Reference: yolo11/src/model.cpp (buildEngineYolo11Cls:33, Det:138, Seg:509,
+Pose:801, Obb:1092), yolo11/src/block.cpp, yolo11/plugin/yololayer.cu. The
+JAX counterpart is tensorrtx_tpu/models/yolo11.py (`apply` →
+`_apply_from_feats3`, and `_apply_cls`).
 
 The module takes NHWC frames (as the JAX ``apply`` does) and returns the
-fixed `Detections` buffer, or with ``postprocess="raw"`` the per-anchor
-boxes, confidences and class ids. Backbone, neck and head run in NCHW
-channels_last; DFL, decode and NMS in float32.
+fixed `Detections` buffer (with ``extras``, and seg's ``masks``), with
+``postprocess="raw"`` the per-anchor boxes, confidences, class ids, extras
+and seg's proto, with ``postprocess="nmsfree"`` the gated top-k; cls
+returns the (B, num_classes) logits. Backbone, neck and heads run in NCHW
+channels_last; DFL, decode, NMS and the masks in float32.
 
 Scale multipliers (yolo11_det.cpp:115-160):
   n: gd=.50 gw=.25 maxc=1024 | s: .50/.50/1024 | m: .50/1.0/512
@@ -19,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -27,7 +31,7 @@ from tensorrtx_tpu_torch.models import _yolo_blocks as B
 from tensorrtx_tpu_torch.models import _yolo_qchain as Q
 from tensorrtx_tpu_torch.ops import detect as D
 from tensorrtx_tpu_torch.ops import nn as ops
-from tensorrtx_tpu_torch.ops.nms import select_and_nms
+from tensorrtx_tpu_torch.ops.nms import select_and_nms, select_topk
 
 SCALES = {
     "n": (0.50, 0.25, 1024),
@@ -38,16 +42,18 @@ SCALES = {
 }
 
 STRIDES = (8, 16, 32)
+TASKS = ("det", "seg", "pose", "obb", "cls")
+POSTPROCESS = ("nms", "raw", "nmsfree")
 
 
 @dataclasses.dataclass
 class Yolo11Cfg:
     """The JAX package's Yolo11Cfg, field for field, so an engine dir's
-    meta.json loads in either package. This slice serves task="det"."""
+    meta.json loads in either package."""
     scale: str = "n"
-    task: str = "det"
-    num_classes: int = 80        # kNumClass
-    input_h: int = 640
+    task: str = "det"            # det | seg | pose | obb | cls
+    num_classes: int = 80        # kNumClass (pose: 1, obb: 15, cls: 1000)
+    input_h: int = 640           # obb: 1024; cls: 224
     input_w: int = 640
     conf_thresh: float = 0.5     # kConfThresh
     nms_thresh: float = 0.45     # kNmsThresh
@@ -55,7 +61,7 @@ class Yolo11Cfg:
     kpt_conf_thresh: float = 0.5
     num_kpts: int = 17
     reg_max: int = 16
-    postprocess: str = "nms"     # "nms" | "raw" (per-anchor decode outputs)
+    postprocess: str = "nms"     # "nms" | "raw" (per-anchor decode outputs) | "nmsfree"
 
     @property
     def multipliers(self):
@@ -63,11 +69,10 @@ class Yolo11Cfg:
 
 
 def _check_cfg(cfg: Yolo11Cfg):
-    if cfg.task != "det":
-        raise NotImplementedError(f"yolo11 task {cfg.task!r} is not ported yet; "
-                                  "this package serves task='det'")
-    if cfg.postprocess not in ("nms", "raw"):
-        raise NotImplementedError(f"yolo11 postprocess {cfg.postprocess!r} is not ported")
+    if cfg.task not in TASKS:
+        raise ValueError(f"yolo11 task {cfg.task!r}: one of {TASKS}")
+    if cfg.postprocess not in POSTPROCESS:
+        raise ValueError(f"yolo11 postprocess {cfg.postprocess!r}: one of {POSTPROCESS}")
 
 
 def _chans(cfg: Yolo11Cfg):
@@ -132,40 +137,134 @@ def _det_head_p(wm, cfg: Yolo11Cfg, head: str, nc: int):
     return p
 
 
+def _extra_branch_p(wm, cfg: Yolo11Cfg, name: str, cmid: int, cout: int):
+    """seg mask-coefficient / pose keypoint / obb angle branch per level:
+    Conv3x3, Conv3x3, then a plain 1×1 with bias."""
+    w, _ = _chans(cfg)
+    return [{
+        "a": B.conv_p(wm, f"{name}.{i}.0", ci, cmid, 3),
+        "b": B.conv_p(wm, f"{name}.{i}.1", cmid, cmid, 3),
+        "c": wm.conv2d(f"{name}.{i}.2", cout, cmid, (1, 1)),
+    } for i, ci in enumerate([w(256), w(512), w(1024)])]
+
+
+def _proto_p(wm, cfg: Yolo11Cfg):
+    w, _ = _chans(cfg)
+    c_ = max(w(256) // 4, 32)
+    # ConvTranspose2d(c_, c_, 2, 2): torch weight (in, out, 2, 2), kept in
+    # the JAX tree as (kh, kw, out, in)
+    up_w = wm.tensor("model.23.proto.upsample.weight", (c_, c_, 2, 2))
+    return {
+        "cv1": B.conv_p(wm, "model.23.proto.cv1", w(256), c_, 3),
+        "up_w": np.transpose(up_w, (2, 3, 1, 0)),
+        "up_b": wm.vec("model.23.proto.upsample.bias", c_),
+        "cv2": B.conv_p(wm, "model.23.proto.cv2", c_, c_, 3),
+        "cv3": B.conv_p(wm, "model.23.proto.cv3", c_, 32, 1),
+    }
+
+
+def _build_cls_params(wm, cfg: Yolo11Cfg):
+    """Cls graph = backbone 0..8, C2PSA at model.9, Classify head at model.10
+    (1×1 to 1280, global average pool, linear; raw logits out),
+    model.cpp:33-137."""
+    w, d = _chans(cfg)
+    return {
+        "backbone": _backbone_p(wm, cfg),
+        "cls_head": {
+            "m9": B.c2psa_p(wm, "model.9", w(1024), w(1024), d(2)),
+            "m10_conv": B.conv_p(wm, "model.10.conv", w(1024), 1280, 1),
+            "m10_linear": wm.linear("model.10.linear", cfg.num_classes, 1280),
+        },
+    }
+
+
 def build_params(wm, cfg: Yolo11Cfg):
     _check_cfg(cfg)
-    return {
+    if cfg.task == "cls":
+        return _build_cls_params(wm, cfg)
+    p = {
         "backbone": _backbone_p(wm, cfg),
         "neck": _neck_p(wm, cfg),
         "head": _det_head_p(wm, cfg, "model.23", cfg.num_classes),
     }
+    w, _ = _chans(cfg)
+    if cfg.task == "seg":
+        p["cv4"] = _extra_branch_p(wm, cfg, "model.23.cv4", max(w(256) // 4, 32), 32)
+        p["proto"] = _proto_p(wm, cfg)
+    elif cfg.task == "pose":
+        kpt_ch = cfg.num_kpts * 3
+        p["cv4"] = _extra_branch_p(wm, cfg, "model.23.cv4", max(w(256) // 4, kpt_ch), kpt_ch)
+    elif cfg.task == "obb":
+        p["cv4"] = _extra_branch_p(wm, cfg, "model.23.cv4", max(w(256) // 4, 1), 1)
+    return p
 
 
 # ---------------------------------------------------------------------------
 # module
 # ---------------------------------------------------------------------------
 
+def _backbone_m(bb):
+    return nn.ModuleDict({
+        "m0": B.Conv(bb["m0"], stride=2),
+        "m1": B.Conv(bb["m1"], stride=2),
+        "m2": B.C3k2(bb["m2"]),
+        "m3": B.Conv(bb["m3"], stride=2),
+        "m4": B.C3k2(bb["m4"]),
+        "m5": B.Conv(bb["m5"], stride=2),
+        "m6": B.C3k2(bb["m6"]),
+        "m7": B.Conv(bb["m7"], stride=2),
+        "m8": B.C3k2(bb["m8"]),
+    })
+
+
+class Proto(nn.Module):
+    """seg prototype masks from P3 (the JAX package's ``_proto_a``):
+    Conv3x3, the 2×2 stride-2 transposed conv (``up_w`` in torch's
+    (in, out, kh, kw) layout) + SiLU, Conv3x3, Conv1x1 to 32 channels."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.cv1 = B.Conv(p["cv1"])
+        self.register_buffer("up_w", p["up_w"])
+        self.register_buffer("up_b", p["up_b"])
+        self.cv2 = B.Conv(p["cv2"])
+        self.cv3 = B.Conv(p["cv3"])
+
+    def forward(self, x):
+        y = ops.silu(ops.conv_transpose2d(self.cv1(x), self.up_w, self.up_b, stride=2))
+        return self.cv3(self.cv2(y))
+
+
+def _masks(proto: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """sigmoid(proto · coeffs) per kept slot in float32 (yolo11_seg.cpp:36-60):
+    proto (B, 32, h, w), coeffs (B, N, 32) → (B, N, h, w)."""
+    p = proto.permute(0, 2, 3, 1).float()
+    b, h, w, c = p.shape
+    m = torch.bmm(coeffs, p.reshape(b, h * w, c).transpose(1, 2))
+    return torch.sigmoid(m).reshape(b, -1, h, w)
+
+
 class Yolo11(nn.Module):
-    """YOLO11 det built from an OIHW tensor tree (`params_from_jax` of a
+    """YOLO11 built from an OIHW tensor tree (`params_from_jax` of a
     `build_params` tree). Submodule names mirror the tree's keys
-    (``backbone.m0``, ``neck.m10.m.0.attn.qkv``, ``head.cv2.0.a``)."""
+    (``backbone.m0``, ``neck.m10.m.0.attn.qkv``, ``head.cv2.0.a``,
+    ``cv4.0.a``, ``proto.up_w``, ``cls_head.m10_linear``), which is what
+    `core.convert.params_to_jax` writes an engine dir's keys from."""
 
     def __init__(self, cfg: Yolo11Cfg, params):
         super().__init__()
         _check_cfg(cfg)
         self.cfg = cfg
-        bb, nk, hd = params["backbone"], params["neck"], params["head"]
-        self.backbone = nn.ModuleDict({
-            "m0": B.Conv(bb["m0"], stride=2),
-            "m1": B.Conv(bb["m1"], stride=2),
-            "m2": B.C3k2(bb["m2"]),
-            "m3": B.Conv(bb["m3"], stride=2),
-            "m4": B.C3k2(bb["m4"]),
-            "m5": B.Conv(bb["m5"], stride=2),
-            "m6": B.C3k2(bb["m6"]),
-            "m7": B.Conv(bb["m7"], stride=2),
-            "m8": B.C3k2(bb["m8"]),
-        })
+        self.backbone = _backbone_m(params["backbone"])
+        if cfg.task == "cls":
+            ch = params["cls_head"]
+            self.cls_head = nn.ModuleDict({
+                "m9": B.C2PSA(ch["m9"]),
+                "m10_conv": B.Conv(ch["m10_conv"]),
+                "m10_linear": B.Linear(ch["m10_linear"]),
+            })
+            return
+        nk, hd = params["neck"], params["head"]
         self.neck = nn.ModuleDict({
             "m9": B.SPPF(nk["m9"]),
             "m10": B.C2PSA(nk["m10"]),
@@ -185,6 +284,12 @@ class Yolo11(nn.Module):
                 "b0": B.Conv(r["b0"]), "b1": B.Conv(r["b1"]),
                 "c": B.Conv(r["c"], act=False)}) for r in hd["cv3"]),
         })
+        if "cv4" in params:
+            self.cv4 = nn.ModuleList(nn.ModuleDict({
+                "a": B.Conv(q["a"]), "b": B.Conv(q["b"]),
+                "c": B.Conv(q["c"], act=False)}) for q in params["cv4"])
+        if "proto" in params:
+            self.proto = Proto(params["proto"])
         # float32 constants kept off the module state, so a dtype cast of
         # the module leaves them alone
         self._grid = D.make_anchor_grid(cfg.input_h, cfg.input_w, STRIDES)
@@ -197,13 +302,16 @@ class Yolo11(nn.Module):
             self._grid_on[device] = g
         return g
 
-    def _features(self, x):
+    def _backbone(self, x):
         m = self.backbone
         x = m["m1"](m["m0"](x))
         x = m["m3"](m["m2"](x))
         c4 = m["m4"](x)
         c6 = m["m6"](m["m5"](c4))
-        x = m["m8"](m["m7"](c6))
+        return m["m8"](m["m7"](c6)), c4, c6
+
+    def _features(self, x):
+        x, c4, c6 = self._backbone(x)
         n = self.neck
         p5_in = n["m10"](n["m9"](x))
         p4_mid = n["m13"](torch.cat([ops.upsample_nearest(p5_in), c6], dim=1))
@@ -223,10 +331,24 @@ class Yolo11(nn.Module):
             cls_lv.append(cls.permute(0, 2, 3, 1))
         return box_lv, cls_lv
 
-    def decode_det(self, box_lv, cls_lv):
-        """The det tail from the head's NHWC outputs: DFL ltrb and best
-        class per level, concatenated level-major like the reference
-        plugin, box decode, then the raw outputs or select + NMS."""
+    def _extras(self, feats):
+        """The cv4 branch per level, flattened level-major and row-major like
+        the plugin (the JAX package's ``_flatten_levels``): (B, ΣN, E) in
+        float32."""
+        outs = []
+        for f, q in zip(feats, self.cv4):
+            y = q["c"](q["b"](q["a"](f)))
+            outs.append(y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1]))
+        return torch.cat(outs, 1).float()
+
+    def decode(self, box_lv, cls_lv, feats=None):
+        """The task tail from the head's NHWC outputs (``feats``, the P3-P5
+        maps, feed the cv4 branch and seg's proto): DFL ltrb and best class
+        per level, concatenated level-major like the reference plugin, the
+        box decode (obb: rotated (cx, cy, w, h) and the angle), pose's
+        keypoints or seg's mask coefficients as extras, then the raw
+        outputs, the gated top-k (``nmsfree``) or select + NMS, with seg's
+        masks for the kept slots."""
         cfg = self.cfg
         b = box_lv[0].shape[0]
         ltrb, conf, cls_id = [], [], []
@@ -237,16 +359,49 @@ class Yolo11(nn.Module):
             cls_id.append(k.reshape(b, -1))
         ltrb, conf, cls_id = torch.cat(ltrb, 1), torch.cat(conf, 1), torch.cat(cls_id, 1)
         points, strides = self._anchor_grid(ltrb.device)
-        boxes = D.decode_boxes_ltrb(ltrb, points, strides)
+        extras = None
+        if cfg.task == "obb":
+            cx, cy, w, h, ang = D.decode_obb(ltrb, self._extras(feats)[..., 0], points, strides)
+            boxes = torch.stack([cx, cy, w, h], dim=-1)
+            extras = ang[..., None]
+        else:
+            boxes = D.decode_boxes_ltrb(ltrb, points, strides)
+            if cfg.task == "pose":
+                extras = D.decode_pose(self._extras(feats), points, strides, boxes,
+                                       cfg.kpt_conf_thresh)
+            elif cfg.task == "seg":
+                extras = self._extras(feats)
         if cfg.postprocess == "raw":
-            return {"boxes": boxes, "conf": conf, "cls": cls_id}
-        return select_and_nms(boxes, conf, cls_id, cfg.conf_thresh,
-                              cfg.nms_thresh, cfg.max_det).as_dict()
+            out = {"boxes": boxes, "conf": conf, "cls": cls_id}
+            if extras is not None:
+                out["extras"] = extras
+            if cfg.task == "seg":
+                out["proto"] = self.proto(feats[0]).permute(0, 2, 3, 1)
+            return out
+        if cfg.postprocess == "nmsfree":
+            return select_topk(boxes, conf, cls_id, cfg.conf_thresh, cfg.max_det,
+                               extras=extras).as_dict()
+        dets = select_and_nms(boxes, conf, cls_id, cfg.conf_thresh, cfg.nms_thresh,
+                              cfg.max_det, extras=extras, obb=cfg.task == "obb")
+        out = dets.as_dict()
+        if cfg.task == "seg":
+            out["masks"] = _masks(self.proto(feats[0]), dets.extras)
+        return out
+
+    def _classify(self, x):
+        """cls: backbone, C2PSA, 1×1 to 1280, global average pool, linear →
+        (B, num_classes) logits in the module's dtype."""
+        h = self.cls_head
+        y = h["m10_conv"](h["m9"](self._backbone(x)[0]))
+        return h["m10_linear"](ops.global_avg_pool(y))
 
     def forward(self, x):
         """x: (B, H, W, 3) NHWC frames in the module's dtype."""
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.decode_det(*self._head(self._features(x)))
+        if self.cfg.task == "cls":
+            return self._classify(x)
+        feats = self._features(x)
+        return self.decode(*self._head(feats), feats)
 
 
 def apply_chain(module: Yolo11, x, cfg: Yolo11Cfg, ctx):
@@ -287,7 +442,7 @@ def apply_chain(module: Yolo11, x, cfg: Yolo11Cfg, ctx):
         box, cls = Q.qdet_head_lv(ctx, q, r, f)
         box_lv.append(box)
         cls_lv.append(cls)
-    return module.decode_det(box_lv, cls_lv)
+    return module.decode(box_lv, cls_lv)
 
 
 # the JAX entry's letterbox_s2d factor; the port letterboxes to full frames
@@ -308,5 +463,5 @@ register(ModelDef(
     default_cfg=Yolo11Cfg,
     input_shape=_input_shape,
     apply_chain=apply_chain,
-    doc="YOLO11 det (reference: yolo11/)",
+    doc="YOLO11 det/seg/pose/obb/cls (reference: yolo11/)",
 ))

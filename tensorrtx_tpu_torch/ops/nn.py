@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "silu", "max_pool", "upsample_nearest", "dfl"]
+__all__ = ["conv2d", "conv_transpose2d", "silu", "max_pool", "upsample_nearest", "dfl",
+           "linear", "global_avg_pool"]
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -24,6 +25,26 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     kernel (C, 1, k, k) on C channels is C groups."""
     groups = x.shape[1] // w.shape[1]
     return F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
+
+
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                     stride: int = 2) -> torch.Tensor:
+    """NCHW transposed conv (torch ConvTranspose2d, groups 1, padding 0) with
+    the weight in its (in, out, kh, kw) layout: the seg proto's 2×2 stride-2
+    upsample (the JAX package's ``conv_transpose2d`` takes it as
+    (kh, kw, out, in); `core.convert` moves it between the two)."""
+    return F.conv_transpose2d(x, w, b, stride=stride)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b) with w stored (in, out), as the JAX package stores it."""
+    out = x @ w
+    return out if b is None else out + b
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, C): the mean over the spatial axes."""
+    return x.mean(dim=(2, 3))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

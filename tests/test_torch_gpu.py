@@ -786,6 +786,66 @@ def test_stream_fn_bit_equal_to_b1_forwards(serving_paths, path):
         run(*frame_set(62, 3))
 
 
+@pytest.fixture(scope="module")
+def task_paths():
+    """The four other yolo11 tasks at a small size (96², cls 64²), bf16:
+    task → its `ServingPipeline`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from tensorrtx_tpu_torch.core.convert import params_from_jax
+    from tensorrtx_tpu_torch.core.engine import Engine
+    from tensorrtx_tpu_torch.core.random_weights import RandomWeightMap
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+    from tensorrtx_tpu_torch.models.yolo11 import Yolo11Cfg, build_params
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for task, nc, size in (("seg", 80, 96), ("pose", 1, 96), ("obb", 15, 96), ("cls", 1000, 64)):
+        cfg = Yolo11Cfg(task=task, num_classes=nc, input_h=size, input_w=size, conf_thresh=0.25)
+        params = params_from_jax(build_params(RandomWeightMap(seed=0), cfg))
+        out[task] = ServingPipeline(Engine("yolo11", params, cfg, "bf16", dev), *BUCKET)
+    return out
+
+
+def as_dict(out):
+    return {"logits": out} if torch.is_tensor(out) else out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("task", ["seg", "pose", "obb", "cls"])
+def test_task_graph_replay_bit_equal_to_eager(task_paths, task, b):
+    # seg's masks and cls's logits come out of the graph as they come out
+    # of the eager forward, for frames whose true sizes change call to call
+    pipe = task_paths[task]
+    sets = [frame_set(70 + 10 * b + i, b) for i in range(3)]
+    outs = [as_dict(pipe(*s)) for s in sets]
+    for i, s in enumerate(sets):
+        assert_same(outs[i], as_dict(eager(pipe.fused, *s)), f"{task} b{b} set {i}")
+    if task == "seg":
+        assert outs[0]["masks"].shape == (b, 189, 24, 24)
+    if task == "cls":
+        assert outs[0]["logits"].shape == (b, 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["seg", "cls"])
+def test_task_stream_fn_bit_equal_to_b1_forwards(task_paths, task):
+    pipe = task_paths[task]
+    frames, src_hw = frame_set(90, 4)
+    got = as_dict(pipe.stream_fn(4)(frames, src_hw))
+    for i in range(4):
+        ref = as_dict(eager(pipe.fused, frames[i:i + 1], src_hw[i:i + 1]))
+        assert_same({k: v[i] for k, v in got.items()}, ref, f"{task} stream frame {i}")
+
+
+@pytest.mark.gpu
+def test_task_detect_images_refuses_cls(task_paths):
+    frames, src_hw = frame_set(91, 1)
+    with pytest.raises(ValueError, match="cls"):
+        task_paths["cls"].detect_images([frames[0, :src_hw[0, 0], :src_hw[0, 1]]])
+
+
 # last in this file: it makes two captures fail on purpose
 @pytest.mark.gpu
 @pytest.mark.parametrize("unsafe", ["h2d", "d2h"])
