@@ -12,12 +12,17 @@ models this package serves):
         --set task=seg          (task=pose num_classes=1, task=obb num_classes=15
                                  input_h=1024 input_w=1024, task=cls
                                  num_classes=1000 input_h=224 input_w=224)
+    python -m tensorrtx_tpu_torch.cli build yolov8 -w v8.wts -o v8-p2.engine \
+        --set variant=p2        (variant=5u; task=seg|pose|obb|cls as for yolo11)
+    python -m tensorrtx_tpu_torch.cli build yolov10 -w v10.wts -o v10.engine
+    python -m tensorrtx_tpu_torch.cli build yolo26 -w y26.wts -o y26.engine \
+        [--set task=obb num_classes=15 input_h=1024 input_w=1024]
     python -m tensorrtx_tpu_torch.cli build yolo11 -w y.wts -o y.int8 \
         --int8-calib-dir CALIB_DIR [--calib-method entropy] [--calib-images 64]
     python -m tensorrtx_tpu_torch.cli run y.engine IMAGE_DIR [--batch 8] [--device cuda]
         (det, seg, pose and obb engines print each image's boxes, scores and
         classes, as the JAX package's `run` does; a cls engine has none and
-        raises)
+        raises; the int8 build takes the det engines of yolo11 and yolov8)
     python -m tensorrtx_tpu_torch.cli list
 """
 

@@ -15,7 +15,8 @@ an engine dir crosses between the packages).
 - Int8-resident tier (`ChainedInt8Engine`): activations stay int8 between
   the convs of a chain mirror (`ops/qchain.py`); absmax calibration.
 
-Both tiers serve yolo11's det task (`check_int8_task`): the other tasks'
+Both tiers serve the det task (`check_int8_task`; yolo11 and yolov8 det,
+the chained tier where the model has an `apply_chain`): the other tasks'
 extra convs have no slot order held against the JAX package's scale table.
 """
 
@@ -63,16 +64,17 @@ def entropy_scale(hist: np.ndarray, absmax: float) -> float:
         p[-1] += outliers
         if p.sum() == 0:
             continue
-        # quantize p into QUANT_BINS, then expand back
-        chunks = np.array_split(p, QUANT_BINS)
-        q = np.zeros_like(p)
-        pos = 0
-        for c in chunks:
-            n = len(c)
-            nz = (c > 0).sum()
-            if nz > 0:
-                q[pos:pos + n] = np.where(c > 0, c.sum() / nz, 0)
-            pos += n
+        # quantize p into QUANT_BINS chunks (`np.array_split`'s: the first
+        # i % QUANT_BINS one bin longer), then expand back: each nonzero bin
+        # takes its chunk's mean over the nonzero bins. The counts are
+        # whole numbers, so the chunk sums are exact in any order.
+        sizes = np.full(QUANT_BINS, i // QUANT_BINS)
+        sizes[:i % QUANT_BINS] += 1
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        sums = np.add.reduceat(p, starts)
+        nz = np.add.reduceat((p > 0).astype(np.int64), starts)
+        mean = np.divide(sums, nz, out=np.zeros_like(sums), where=nz > 0)
+        q = np.where(p > 0, np.repeat(mean, sizes), 0.0)
         pm = p / p.sum()
         qm = q / max(q.sum(), 1e-12)
         mask = pm > 0

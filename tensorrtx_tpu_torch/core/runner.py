@@ -260,7 +260,7 @@ class ServingPipeline:
         the pinned one); the pixels of a frame outside its image keep
         whatever they held, which the letterbox never reads. A cls engine
         has no detections: serve it by ``__call__``."""
-        if self.engine.cfg.task == "cls":
+        if getattr(self.engine.cfg, "task", "det") == "cls":   # yolov10's cfg has no task
             raise ValueError("detect_images serves detection tasks; a cls engine returns "
                              "logits: call the pipeline instead")
         src_hw = np.array([im.shape[:2] for im in images], np.int32).reshape(-1, 2)

@@ -44,10 +44,13 @@ def save_wts(path: str, tensors: Mapping[str, np.ndarray]) -> None:
         f.write(f"{len(tensors)}\n")
         for name, v in tensors.items():
             flat = np.asarray(v, dtype=np.float32).reshape(-1)
-            be = flat.astype(">f4").tobytes()
-            toks = "".join(" " + be[4 * i:4 * i + 4].hex()
-                           for i in range(flat.size))
-            f.write(f"{name} {flat.size}{toks}\n")
+            # each value as " " + its 8 big-endian hex digits, built for
+            # all values at once
+            hexes = np.frombuffer(flat.astype(">f4").tobytes().hex().encode("ascii"),
+                                  dtype=np.uint8).reshape(-1, 8)
+            toks = np.full((flat.size, 9), ord(" "), np.uint8)
+            toks[:, 1:] = hexes
+            f.write(f"{name} {flat.size}{toks.tobytes().decode('ascii')}\n")
 
 
 def state_dict_to_wts(path: str, state_dict: Mapping[str, object]) -> None:

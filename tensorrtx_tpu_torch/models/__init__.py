@@ -4,7 +4,7 @@ import importlib
 
 # Modules that register models on import; the port grows this list slice
 # by slice.
-_MODULES = ["yolo11"]
+_MODULES = ["yolo11", "yolov8", "yolov10", "yolo26"]
 
 
 def load_all():

@@ -8,7 +8,9 @@ built from the same tree after `core.convert.params_from_jax` turned it into
 OIHW tensors; each takes its structure from the tree, as the JAX apply
 functions do, so module names mirror the tree's keys (``m.0.cv1.w``). The
 reference blocks are yolo11/src/block.cpp: convBnSiLU:74, bottleneck:96,
-SPPF:113, C3k:220, C3K2:239, Attention:293, PSABlock:357, C2PSA:380.
+SPPF:113, C3k:220, C3K2:239, Attention:293, PSABlock:357, C2PSA:380, and
+yolov8/src/block.cpp's C2F (a C3K2 of plain bottlenecks) and YOLOv5's C3
+(a C3k with 1×3 bottlenecks).
 
 Only the plain graph is ported; the JAX package's TPU layout rewrites of it
 (space-to-depth, row-phase, batch-fold) compute the same values.
@@ -17,6 +19,7 @@ Only the plain graph is ported; the JAX package's TPU layout rewrites of it
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -66,6 +69,18 @@ def c3k_p(wm, name, c1, c2, n=2, e=0.5):
     }
 
 
+def c3_p(wm, name, c1, c2, n, e=0.5):
+    """YOLOv5 C3: bottlenecks use k=(1,3), e=1.0 (ultralytics C3 default)."""
+    c_ = int(c2 * e)
+    return {
+        "cv1": conv_p(wm, f"{name}.cv1", c1, c_),
+        "cv2": conv_p(wm, f"{name}.cv2", c1, c_),
+        "cv3": conv_p(wm, f"{name}.cv3", 2 * c_, c2),
+        "m": [bottleneck_p(wm, f"{name}.m.{i}", c_, c_, k1=1, k2=3, e=1.0)
+              for i in range(n)],
+    }
+
+
 def c3k2_p(wm, name, c1, c2, n, c3k: bool, e=0.5):
     c_ = int(c2 * e)
     blocks = []
@@ -78,6 +93,18 @@ def c3k2_p(wm, name, c1, c2, n, c3k: bool, e=0.5):
         "cv1": conv_p(wm, f"{name}.cv1", c1, 2 * c_),
         "cv2": conv_p(wm, f"{name}.cv2", (2 + n) * c_, c2),
         "m": blocks,
+    }
+
+
+def c2f_p(wm, name, c1, c2, n, e=0.5):
+    """YOLOv8 C2f (yolov8/src/block.cpp): the C3k2 split/append pattern
+    with bottlenecks of k=(3,3), e=1.0."""
+    c_ = int(c2 * e)
+    return {
+        "cv1": conv_p(wm, f"{name}.cv1", c1, 2 * c_),
+        "cv2": conv_p(wm, f"{name}.cv2", (2 + n) * c_, c2),
+        "m": [bottleneck_p(wm, f"{name}.m.{i}", c_, c_, k1=3, k2=3, e=1.0)
+              for i in range(n)],
     }
 
 
@@ -124,8 +151,9 @@ def c2psa_p(wm, name, c1, c2, n, e=0.5):
 # ---------------------------------------------------------------------------
 
 class Conv(nn.Module):
-    """Conv with folded BN, then SiLU when ``act``. Padding k//2; a
-    depthwise kernel makes it a depthwise conv (groups from the weight).
+    """Conv with folded BN, then SiLU when ``act``. Padding ``pad``, by
+    default k//2; a depthwise kernel makes it a depthwise conv (groups from
+    the weight).
 
     ``slot`` is None on the float path. An int8 engine's copy of the
     network (`core/quant.py` `QuantizedEngine`, `calibrate`) gives every
@@ -136,12 +164,12 @@ class Conv(nn.Module):
     taps of the input or runs the int8 conv in place of the float one; the
     SiLU after it is the same."""
 
-    def __init__(self, p, stride: int = 1, act: bool = True):
+    def __init__(self, p, stride: int = 1, act: bool = True, pad: Optional[int] = None):
         super().__init__()
         self.register_buffer("w", p["w"])
         self.register_buffer("b", p["b"])
         self.stride = stride
-        self.pad = p["w"].shape[2] // 2
+        self.pad = p["w"].shape[2] // 2 if pad is None else pad
         self.act = act
         self.slot = None
 
@@ -180,12 +208,15 @@ class Bottleneck(nn.Module):
 
 
 class C3k(nn.Module):
-    def __init__(self, p):
+    """C3k, and YOLOv5's C3 (`C3`): the bottlenecks' kernel sizes live in
+    the weights. ``shortcut`` reaches every bottleneck."""
+
+    def __init__(self, p, shortcut: bool = True):
         super().__init__()
         self.cv1 = Conv(p["cv1"])
         self.cv2 = Conv(p["cv2"])
         self.cv3 = Conv(p["cv3"])
-        self.m = nn.ModuleList(Bottleneck(b) for b in p["m"])
+        self.m = nn.ModuleList(Bottleneck(b, shortcut) for b in p["m"])
 
     def forward(self, x):
         y1 = self.cv1(x)
@@ -197,13 +228,15 @@ class C3k(nn.Module):
 
 class C3k2(nn.Module):
     """C3k2: sub-blocks are C3k where the tree has a cv3 conv, plain
-    bottlenecks otherwise."""
+    bottlenecks otherwise; YOLOv8's C2f (`C2f`) is the plain-bottleneck
+    case. ``shortcut`` reaches every bottleneck (the v8 and v10 necks run
+    without it)."""
 
-    def __init__(self, p):
+    def __init__(self, p, shortcut: bool = True):
         super().__init__()
         self.cv1 = Conv(p["cv1"])
         self.cv2 = Conv(p["cv2"])
-        self.m = nn.ModuleList(C3k(b) if "cv3" in b else Bottleneck(b)
+        self.m = nn.ModuleList(C3k(b, shortcut) if "cv3" in b else Bottleneck(b, shortcut)
                                for b in p["m"])
 
     def forward(self, x):
@@ -215,6 +248,11 @@ class C3k2(nn.Module):
             cur = b(cur)
             parts.append(cur)
         return self.cv2(torch.cat(parts, dim=1))
+
+
+# the same dataflows, as the JAX package aliases them (c3_a = c3k_a)
+C3 = C3k
+C2f = C3k2
 
 
 class SPPF(nn.Module):
@@ -290,3 +328,13 @@ class C2PSA(nn.Module):
         for blk in self.m:
             bpart = blk(bpart)
         return self.cv2(torch.cat([a, bpart], dim=1))
+
+
+def branch3_m(p) -> nn.ModuleDict:
+    """A head branch: Conv3x3, Conv3x3, then a plain 1×1 exit with bias
+    (the box branch, yolov8's class branch, the cv4 task branches)."""
+    return nn.ModuleDict({"a": Conv(p["a"]), "b": Conv(p["b"]), "c": Conv(p["c"], act=False)})
+
+
+def branch3(q, f):
+    return q["c"](q["b"](q["a"](f)))

@@ -72,12 +72,25 @@ def qc2psa_a(ctx, m, x):
     return ctx.from_float(y.contiguous())
 
 
+# C2f (yolov8) and C3 (yolov5) run through the c3k2/c3k mirrors unchanged:
+# the same dataflow, the kernel sizes in the weights (their float twins are
+# aliased the same way in `_yolo_blocks`)
+qc2f_a = qc3k2_a
+qc3_a = qc3k_a
+
+
+def qbranch3(ctx, q, f):
+    """A plain a → b conv pair and a 1×1 float-out exit (yolov8's box AND
+    class branches: v8 has no depthwise pair in its class branch)."""
+    y = qconv_a(ctx, q["a"], f)
+    y = qconv_a(ctx, q["b"], y)
+    return ctx.conv_out(y, q["c"].w, q["c"].b)
+
+
 def qdet_head_lv(ctx, q, r, f):
     """One detect-head level (box cv2 and class cv3 branches) on a chain
     tensor; the last 1×1s emit float logits, the decode tail's inputs."""
-    y = qconv_a(ctx, q["a"], f)
-    y = qconv_a(ctx, q["b"], y)
-    box = ctx.conv_out(y, q["c"].w, q["c"].b)
+    box = qbranch3(ctx, q, f)
     z = ctx.dwconv(f, r["a0"].w, r["a0"].b)
     z = qconv_a(ctx, r["a1"], z)
     z = ctx.dwconv(z, r["b0"].w, r["b0"].b)

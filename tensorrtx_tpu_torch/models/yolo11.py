@@ -244,7 +244,121 @@ def _masks(proto: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(m).reshape(b, -1, h, w)
 
 
-class Yolo11(nn.Module):
+class AnchorFreeDet(nn.Module):
+    """The task tail the anchor-free families share (the JAX package's
+    ``_decode_levels`` + ``_decode_det``/``_decode_and_nms``, used by its
+    yolo11, yolov8, yolov10 and yolo26): the head per level, the cv4
+    branch, the decode, the selection, seg's masks. A subclass sets
+    ``cfg`` and calls `_init_tail` with its param tree and strides.
+
+    ``postprocess``: "raw" returns the per-anchor outputs, "nms" select +
+    NMS, "nmsfree" (yolo11) or "topk" (yolov10, yolo26) the gated top-k."""
+
+    def _init_tail(self, params, strides=STRIDES):
+        if "cv4" in params:
+            self.cv4 = nn.ModuleList(B.branch3_m(q) for q in params["cv4"])
+        if "proto" in params:
+            self.proto = Proto(params["proto"])
+        # float32 constants kept off the module state, so a dtype cast of
+        # the module leaves them alone
+        self._grid = D.make_anchor_grid(self.cfg.input_h, self.cfg.input_w, strides)
+        self._grid_on: Dict[torch.device, tuple] = {}
+
+    @staticmethod
+    def _det_head_m(hd) -> nn.ModuleDict:
+        """yolo11's head (also yolov10's and yolo26's one2one head): a box
+        branch (`B.branch3_m`) and a class branch of two depthwise +
+        pointwise pairs and a 1×1 exit, per level."""
+        return nn.ModuleDict({
+            "cv2": nn.ModuleList(B.branch3_m(q) for q in hd["cv2"]),
+            "cv3": nn.ModuleList(nn.ModuleDict({
+                "a0": B.Conv(r["a0"]), "a1": B.Conv(r["a1"]),
+                "b0": B.Conv(r["b0"]), "b1": B.Conv(r["b1"]),
+                "c": B.Conv(r["c"], act=False)}) for r in hd["cv3"]),
+        })
+
+    def _anchor_grid(self, device):
+        g = self._grid_on.get(device)
+        if g is None:
+            g = tuple(torch.from_numpy(a).to(device) for a in self._grid)
+            self._grid_on[device] = g
+        return g
+
+    def _head(self, feats):
+        """Per level: box branch, then class branch (`_det_head_m`), as
+        NHWC views of the channels_last outputs."""
+        box_lv, cls_lv = [], []
+        for f, q, r in zip(feats, self.head["cv2"], self.head["cv3"]):
+            box = B.branch3(q, f)
+            cls = r["c"](r["b1"](r["b0"](r["a1"](r["a0"](f)))))
+            box_lv.append(box.permute(0, 2, 3, 1))
+            cls_lv.append(cls.permute(0, 2, 3, 1))
+        return box_lv, cls_lv
+
+    def _extras(self, feats):
+        """The cv4 branch per level, flattened level-major and row-major like
+        the plugin (the JAX package's ``_flatten_levels``): (B, ΣN, E) in
+        float32."""
+        outs = []
+        for f, q in zip(feats, self.cv4):
+            y = B.branch3(q, f)
+            outs.append(y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1]))
+        return torch.cat(outs, 1).float()
+
+    def _ltrb(self, box_lv):
+        """(B, ΣN, 4) float32 distances from the box levels: the DFL decode."""
+        b = box_lv[0].shape[0]
+        return torch.cat([ops.dfl(box, self.cfg.reg_max).reshape(b, -1, 4) for box in box_lv], 1)
+
+    def decode(self, box_lv, cls_lv, feats=None):
+        """The task tail from the head's NHWC outputs (``feats``, the
+        feature maps, feed the cv4 branch and seg's proto): the ltrb
+        distances (`_ltrb`) and best class per level, concatenated
+        level-major like the reference plugin, the box decode (obb:
+        rotated (cx, cy, w, h) and the angle), pose's keypoints or seg's
+        mask coefficients as extras, then the raw outputs, the gated top-k
+        or select + NMS, with seg's masks for the kept slots."""
+        cfg = self.cfg
+        task = getattr(cfg, "task", "det")
+        b = box_lv[0].shape[0]
+        conf, cls_id = [], []
+        for cls in cls_lv:
+            c, k = D.best_class(cls)
+            conf.append(c.reshape(b, -1))
+            cls_id.append(k.reshape(b, -1))
+        ltrb, conf, cls_id = self._ltrb(box_lv), torch.cat(conf, 1), torch.cat(cls_id, 1)
+        points, strides = self._anchor_grid(ltrb.device)
+        extras = None
+        if task == "obb":
+            cx, cy, w, h, ang = D.decode_obb(ltrb, self._extras(feats)[..., 0], points, strides)
+            boxes = torch.stack([cx, cy, w, h], dim=-1)
+            extras = ang[..., None]
+        else:
+            boxes = D.decode_boxes_ltrb(ltrb, points, strides)
+            if task == "pose":
+                extras = D.decode_pose(self._extras(feats), points, strides, boxes,
+                                       cfg.kpt_conf_thresh)
+            elif task == "seg":
+                extras = self._extras(feats)
+        if cfg.postprocess == "raw":
+            out = {"boxes": boxes, "conf": conf, "cls": cls_id}
+            if extras is not None:
+                out["extras"] = extras
+            if task == "seg":
+                out["proto"] = self.proto(feats[0]).permute(0, 2, 3, 1)
+            return out
+        if cfg.postprocess in ("nmsfree", "topk"):
+            return select_topk(boxes, conf, cls_id, cfg.conf_thresh, cfg.max_det,
+                               extras=extras).as_dict()
+        dets = select_and_nms(boxes, conf, cls_id, cfg.conf_thresh, cfg.nms_thresh,
+                              cfg.max_det, extras=extras, obb=task == "obb")
+        out = dets.as_dict()
+        if task == "seg":
+            out["masks"] = _masks(self.proto(feats[0]), dets.extras)
+        return out
+
+
+class Yolo11(AnchorFreeDet):
     """YOLO11 built from an OIHW tensor tree (`params_from_jax` of a
     `build_params` tree). Submodule names mirror the tree's keys
     (``backbone.m0``, ``neck.m10.m.0.attn.qkv``, ``head.cv2.0.a``,
@@ -264,7 +378,7 @@ class Yolo11(nn.Module):
                 "m10_linear": B.Linear(ch["m10_linear"]),
             })
             return
-        nk, hd = params["neck"], params["head"]
+        nk = params["neck"]
         self.neck = nn.ModuleDict({
             "m9": B.SPPF(nk["m9"]),
             "m10": B.C2PSA(nk["m10"]),
@@ -275,32 +389,8 @@ class Yolo11(nn.Module):
             "m20": B.Conv(nk["m20"], stride=2),
             "m22": B.C3k2(nk["m22"]),
         })
-        self.head = nn.ModuleDict({
-            "cv2": nn.ModuleList(nn.ModuleDict({
-                "a": B.Conv(q["a"]), "b": B.Conv(q["b"]),
-                "c": B.Conv(q["c"], act=False)}) for q in hd["cv2"]),
-            "cv3": nn.ModuleList(nn.ModuleDict({
-                "a0": B.Conv(r["a0"]), "a1": B.Conv(r["a1"]),
-                "b0": B.Conv(r["b0"]), "b1": B.Conv(r["b1"]),
-                "c": B.Conv(r["c"], act=False)}) for r in hd["cv3"]),
-        })
-        if "cv4" in params:
-            self.cv4 = nn.ModuleList(nn.ModuleDict({
-                "a": B.Conv(q["a"]), "b": B.Conv(q["b"]),
-                "c": B.Conv(q["c"], act=False)}) for q in params["cv4"])
-        if "proto" in params:
-            self.proto = Proto(params["proto"])
-        # float32 constants kept off the module state, so a dtype cast of
-        # the module leaves them alone
-        self._grid = D.make_anchor_grid(cfg.input_h, cfg.input_w, STRIDES)
-        self._grid_on: Dict[torch.device, tuple] = {}
-
-    def _anchor_grid(self, device):
-        g = self._grid_on.get(device)
-        if g is None:
-            g = tuple(torch.from_numpy(a).to(device) for a in self._grid)
-            self._grid_on[device] = g
-        return g
+        self.head = self._det_head_m(params["head"])
+        self._init_tail(params)
 
     def _backbone(self, x):
         m = self.backbone
@@ -319,74 +409,6 @@ class Yolo11(nn.Module):
         p4 = n["m19"](torch.cat([n["m17"](p3), p4_mid], dim=1))
         p5 = n["m22"](torch.cat([n["m20"](p4), p5_in], dim=1))
         return p3, p4, p5
-
-    def _head(self, feats):
-        """Per level: box branch and class branch, as NHWC views of the
-        channels_last outputs."""
-        box_lv, cls_lv = [], []
-        for f, q, r in zip(feats, self.head["cv2"], self.head["cv3"]):
-            box = q["c"](q["b"](q["a"](f)))
-            cls = r["c"](r["b1"](r["b0"](r["a1"](r["a0"](f)))))
-            box_lv.append(box.permute(0, 2, 3, 1))
-            cls_lv.append(cls.permute(0, 2, 3, 1))
-        return box_lv, cls_lv
-
-    def _extras(self, feats):
-        """The cv4 branch per level, flattened level-major and row-major like
-        the plugin (the JAX package's ``_flatten_levels``): (B, ΣN, E) in
-        float32."""
-        outs = []
-        for f, q in zip(feats, self.cv4):
-            y = q["c"](q["b"](q["a"](f)))
-            outs.append(y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1]))
-        return torch.cat(outs, 1).float()
-
-    def decode(self, box_lv, cls_lv, feats=None):
-        """The task tail from the head's NHWC outputs (``feats``, the P3-P5
-        maps, feed the cv4 branch and seg's proto): DFL ltrb and best class
-        per level, concatenated level-major like the reference plugin, the
-        box decode (obb: rotated (cx, cy, w, h) and the angle), pose's
-        keypoints or seg's mask coefficients as extras, then the raw
-        outputs, the gated top-k (``nmsfree``) or select + NMS, with seg's
-        masks for the kept slots."""
-        cfg = self.cfg
-        b = box_lv[0].shape[0]
-        ltrb, conf, cls_id = [], [], []
-        for box, cls in zip(box_lv, cls_lv):
-            ltrb.append(ops.dfl(box, cfg.reg_max).reshape(b, -1, 4))
-            c, k = D.best_class(cls)
-            conf.append(c.reshape(b, -1))
-            cls_id.append(k.reshape(b, -1))
-        ltrb, conf, cls_id = torch.cat(ltrb, 1), torch.cat(conf, 1), torch.cat(cls_id, 1)
-        points, strides = self._anchor_grid(ltrb.device)
-        extras = None
-        if cfg.task == "obb":
-            cx, cy, w, h, ang = D.decode_obb(ltrb, self._extras(feats)[..., 0], points, strides)
-            boxes = torch.stack([cx, cy, w, h], dim=-1)
-            extras = ang[..., None]
-        else:
-            boxes = D.decode_boxes_ltrb(ltrb, points, strides)
-            if cfg.task == "pose":
-                extras = D.decode_pose(self._extras(feats), points, strides, boxes,
-                                       cfg.kpt_conf_thresh)
-            elif cfg.task == "seg":
-                extras = self._extras(feats)
-        if cfg.postprocess == "raw":
-            out = {"boxes": boxes, "conf": conf, "cls": cls_id}
-            if extras is not None:
-                out["extras"] = extras
-            if cfg.task == "seg":
-                out["proto"] = self.proto(feats[0]).permute(0, 2, 3, 1)
-            return out
-        if cfg.postprocess == "nmsfree":
-            return select_topk(boxes, conf, cls_id, cfg.conf_thresh, cfg.max_det,
-                               extras=extras).as_dict()
-        dets = select_and_nms(boxes, conf, cls_id, cfg.conf_thresh, cfg.nms_thresh,
-                              cfg.max_det, extras=extras, obb=cfg.task == "obb")
-        out = dets.as_dict()
-        if cfg.task == "seg":
-            out["masks"] = _masks(self.proto(feats[0]), dets.extras)
-        return out
 
     def _classify(self, x):
         """cls: backbone, C2PSA, 1×1 to 1280, global average pool, linear →

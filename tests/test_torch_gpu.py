@@ -846,6 +846,130 @@ def test_task_detect_images_refuses_cls(task_paths):
         task_paths["cls"].detect_images([frames[0, :src_hw[0, 0], :src_hw[0, 1]]])
 
 
+# --- yolov8, yolov10 and yolo26 through the same captured graphs -----------
+
+# this slice's paths at 96² (cls 64²): name → (model, cfg fields)
+NEW_PATHS = {
+    "v8_det": ("yolov8", {}), "v8_seg": ("yolov8", {"task": "seg"}),
+    "v8_pose": ("yolov8", {"task": "pose", "num_classes": 1}),
+    "v8_obb": ("yolov8", {"task": "obb", "num_classes": 15}),
+    "v8_cls": ("yolov8", {"task": "cls", "num_classes": 1000, "input_h": 64, "input_w": 64}),
+    "v8_p2": ("yolov8", {"variant": "p2"}), "v8_5u": ("yolov8", {"variant": "5u"}),
+    "v10_det": ("yolov10", {}), "y26_det": ("yolo26", {}),
+    "y26_obb": ("yolo26", {"task": "obb", "num_classes": 15}),
+    "y26_cls": ("yolo26", {"task": "cls", "num_classes": 1000, "input_h": 64, "input_w": 64}),
+}
+
+
+def new_engine(model, dev, **over):
+    import dataclasses
+
+    from tensorrtx_tpu_torch.core.convert import params_from_jax
+    from tensorrtx_tpu_torch.core.engine import Engine
+    from tensorrtx_tpu_torch.core.random_weights import RandomWeightMap
+    from tensorrtx_tpu_torch.core.registry import get_model
+
+    md = get_model(model)
+    cfg = dataclasses.replace(md.default_cfg(), **{"input_h": 96, "input_w": 96,
+                                                   "conf_thresh": 0.25, **over})
+    return Engine(model, params_from_jax(md.build_params(RandomWeightMap(seed=0), cfg)), cfg,
+                  "bf16", dev)
+
+
+@pytest.fixture(scope="module")
+def new_paths():
+    """Every path of this slice at a small size, bf16: NEW_PATHS as
+    `ServingPipeline`s, and YOLOv8n det's chained int8 engine ("v8_chain")
+    and float-resident tier ("v8_tier"): name → (the captured call, its
+    eager device function)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from tensorrtx_tpu_torch.core.quant import ChainedInt8Engine, QuantizedEngine, calibrate
+    from tensorrtx_tpu_torch.core.runner import ServingPipeline
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, (model, over) in NEW_PATHS.items():
+        pipe = ServingPipeline(new_engine(model, dev, **over), *BUCKET)
+        out[name] = (pipe, pipe.fused)
+    ce = ChainedInt8Engine(new_engine("yolov8", dev))
+    ce.calibrate([frame_set(1, 4)[0]])
+    out["v8_chain"] = (ce, ce.raw_serve)
+    eng = new_engine("yolov8", dev)
+    x = torch.rand((2, 96, 96, 3), generator=torch.Generator().manual_seed(0))
+    tier = ServingPipeline(QuantizedEngine(eng, calibrate(eng, [x], "absmax")), *BUCKET)
+    out["v8_tier"] = (tier, tier.fused)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("path", [*NEW_PATHS, "v8_chain", "v8_tier"])
+def test_new_path_graph_replay_bit_equal_to_eager(new_paths, path, b):
+    call, fn = new_paths[path]
+    sets = [frame_set(100 + 10 * b + i, b) for i in range(3)]
+    outs = [as_dict(call(*s)) for s in sets]
+    for i, s in enumerate(sets):
+        assert_same(outs[i], as_dict(eager(fn, *s)), f"{path} b{b} set {i}")
+    lead = outs[0]["logits" if path.endswith("cls") else "count"].shape[0]
+    assert lead == b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["v8_chain", "v8_tier"])
+def test_v8_int8_qconv_launches_match_plain(new_paths, path):
+    """One b2 forward of YOLOv8n det's int8 path with every qconv launch
+    recomputed by its plain version on the same inputs (the chain's int8
+    outputs within 1 LSB on under 0.1 % of the elements, float exits
+    within 1e-5 relative (bf16: 2^-7)), and the launches the path makes:
+    35 qconv3x3 + 22 qconv1x1 on the chain; 39 quantize_int8 + 39 qconv3x3
+    and 24 qconv1x1 quantizing their own float inputs on the tier."""
+    from tensorrtx_tpu_torch.ops.cuda import qconv as qk
+    from tensorrtx_tpu_torch.ops.cuda import quantize as qz
+
+    owner, fn = new_paths[path]
+    real = {"qconv3x3": qk.qconv3x3, "qconv1x1": qk.qconv1x1}
+    calls = {"qconv3x3": 0, "qconv1x1": 0}
+
+    def wrap(name):
+        def run(*args, **kw):
+            got = real[name](*args, **kw)
+            kw = dict(kw)
+            sx = kw.pop("sx", None)
+            x = args[0] if sx is None else qz.quantize_int8_plain(args[0], sx, divide=True)
+            ref = qk.qconv_plain(x, *args[1:], **kw)
+            if kw.get("out_float"):
+                rel = 2 ** -7 if ref.dtype == torch.bfloat16 else 1e-5
+                tol = rel * (1 + float(ref.float().abs().max()))
+                assert float((got.float() - ref.float()).abs().max()) <= tol, name
+            else:
+                d = (got.int() - ref.int()).abs()
+                assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3, name
+            calls[name] += 1
+            return got
+        return run
+
+    counters = {"quantize_int8": (qz, "launches"), "qconv3x3": (qk, "launches_3x3"),
+                "qconv1x1": (qk, "launches_1x1"), "qconv1x1_fq": (qk, "launches_1x1_fq")}
+    before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    for name in real:
+        setattr(qk, name, wrap(name))
+    try:
+        out = eager(fn, *frame_set(120, 2))
+    finally:
+        for name, f in real.items():
+            setattr(qk, name, f)
+    torch.cuda.synchronize()
+    made = {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()}
+    if path == "v8_chain":
+        assert calls == {"qconv3x3": 35, "qconv1x1": 22}
+        assert made == {"quantize_int8": 0, "qconv3x3": 35, "qconv1x1": 22, "qconv1x1_fq": 0}
+    else:
+        assert calls == {"qconv3x3": 39, "qconv1x1": 24}
+        assert made == {"quantize_int8": 39, "qconv3x3": 39, "qconv1x1": 0, "qconv1x1_fq": 24}
+    assert out["count"].shape == (2,)
+
+
 # last in this file: it makes two captures fail on purpose
 @pytest.mark.gpu
 @pytest.mark.parametrize("unsafe", ["h2d", "d2h"])
